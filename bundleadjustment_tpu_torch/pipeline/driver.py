@@ -1,0 +1,1078 @@
+"""Tracking / mapping pipeline driver on tensors.
+
+Port of `bundleadjustment_tpu/pipeline/driver.py`, default path only:
+gtdepth initialization, `estimation="ba"` tracking with the guided
+local-map second pass, keyframe culling / triangulation / covisibility /
+neighbourhood search and fusion, local or global BA (`global_ba_mode=
+"single"`), and `finalize` (the 3 x 100 global BA plus two rounds of
+trajectory refinement), with the native C++ map store (`SceneMap`, copied
+from the JAX package) holding the observation graph.
+
+Device work (detection, matching, motion-only BA, triangulation, BA) runs on
+`device`; host bookkeeping stays in numpy. Every Hamming top-2 search
+(previous-frame match, guided local-map match, neighbour search) goes through
+kernel A; dense BA goes through kernels B and C.
+
+Differences from the JAX driver, none of which changes a result:
+
+- tracking runs per frame. `track_batch` is accepted but the reference's
+  `lax.scan` microbatch only amortised TPU dispatch (its tests show it equals
+  the per-frame path); likewise `fused_tracking` and `matcher` only chose how
+  the JAX package dispatched the same computation;
+- no power-of-two shape buckets: they existed to reuse jit compilations.
+
+Modes off this path raise NotImplementedError naming the ROADMAP item that
+ports them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from bundleadjustment_tpu_torch.device import resolve_device
+from bundleadjustment_tpu_torch.geometry import np_se3
+from bundleadjustment_tpu_torch.geometry.triangulation import triangulate_gated
+from bundleadjustment_tpu_torch.mapstate.scene import SceneMap
+from bundleadjustment_tpu_torch.ops.features import FeatureConfig, detect_and_describe
+from bundleadjustment_tpu_torch.ops.matching import (
+    match_descriptors_batch,
+    match_descriptors_fused,
+)
+from bundleadjustment_tpu_torch.pipeline.config import PipelineConfig
+from bundleadjustment_tpu_torch.solvers.dense_ba import (
+    dense_ba_solve,
+    densify_problem_auto,
+)
+from bundleadjustment_tpu_torch.solvers.lm import (
+    LMConfig,
+    MotionOnlyConfig,
+    ba_solve,
+    motion_only_ba,
+)
+from bundleadjustment_tpu_torch.solvers.residuals import BAProblem, prune_outliers_cams
+from bundleadjustment_tpu_torch.utils.profiling import PhaseTimer
+
+
+def sample_color_bilinear(image, uv):
+    """Sub-pixel color lookup. image [H,W] gray in [0,1] or [H,W,3] uint8;
+    returns [N,3] uint8."""
+    h, w = image.shape[:2]
+    x = np.clip(uv[:, 0], 0, w - 1.001)
+    y = np.clip(uv[:, 1], 0, h - 1.001)
+    x0 = x.astype(int)
+    y0 = y.astype(int)
+    fx = (x - x0)[:, None]
+    fy = (y - y0)[:, None]
+    img = image.astype(np.float32)
+    if img.ndim == 2:
+        img = img[..., None] * 255.0
+    val = (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x0 + 1] * fx * (1 - fy)
+           + img[y0 + 1, x0] * (1 - fx) * fy + img[y0 + 1, x0 + 1] * fx * fy)
+    if val.shape[1] == 1:
+        val = np.repeat(val, 3, axis=1)
+    return np.clip(val, 0, 255).astype(np.uint8)
+
+
+def sample_depth_bilinear(depth, uv):
+    """Sub-pixel depth lookup; a sample is valid only if its 4 neighbours
+    are finite (invalid -> nan)."""
+    h, w = depth.shape
+    x = np.clip(uv[:, 0], 0, w - 1.001)
+    y = np.clip(uv[:, 1], 0, h - 1.001)
+    x0 = x.astype(int)
+    y0 = y.astype(int)
+    fx = x - x0
+    fy = y - y0
+    d = [depth[y0, x0], depth[y0, x0 + 1], depth[y0 + 1, x0], depth[y0 + 1, x0 + 1]]
+    ok = np.isfinite(d[0]) & np.isfinite(d[1]) & np.isfinite(d[2]) & np.isfinite(d[3])
+    d00, d01, d10, d11 = (np.where(ok, v, 0.0) for v in d)
+    val = (d00 * (1 - fx) * (1 - fy) + d01 * fx * (1 - fy)
+           + d10 * (1 - fx) * fy + d11 * fx * fy)
+    return np.where(ok & (val > 0), val, np.nan)
+
+
+@dataclass
+class FrameFeatures:
+    xy: np.ndarray
+    octave: np.ndarray
+    sigma2: np.ndarray
+    desc: np.ndarray  # [M, 8] uint32
+    valid: np.ndarray
+    desc_dev: torch.Tensor | None = None  # [M, 8] int32 on the device
+    valid_dev: torch.Tensor | None = None
+
+
+@dataclass
+class TrackRecord:
+    timestamp: float
+    slot: int
+    extr: np.ndarray  # world->camera rt6 at tracking time
+    is_keyframe: bool
+    ref_kf: int | None = None  # most recent keyframe at tracking time
+    rel: np.ndarray | None = None  # extr o inv(kf_pose[ref_kf])
+    assoc_pt: np.ndarray | None = None
+    assoc_uv: np.ndarray | None = None
+    assoc_sig: np.ndarray | None = None
+    feats: FrameFeatures | None = None
+    assoc_kp: np.ndarray | None = None
+
+
+def _not_ported(what, item):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1: {item})")
+
+
+def check_config(cfg: PipelineConfig):
+    """Raise NotImplementedError for every mode off the ported path."""
+    if cfg.init_type != "gtdepth":
+        _not_ported(f"init_type={cfg.init_type!r}", "standard init / epipolar.py")
+    if cfg.estimation != "ba":
+        _not_ported(f"estimation={cfg.estimation!r}", "PnP and E/H tracking")
+    if cfg.global_ba_mode != "single":
+        _not_ported(f"global_ba_mode={cfg.global_ba_mode!r}",
+                    "windowed and sharded modes over parallel/*")
+    if cfg.ba_solver != "dense":
+        _not_ported(f"ba_solver={cfg.ba_solver!r}", "PCG")
+    if cfg.depth_landmarks:
+        _not_ported("depth_landmarks", "depth seeding")
+
+
+def _feat_capacity(config: PipelineConfig):
+    return config.n_features + 16 * config.n_levels
+
+
+class BundleAdjustmentPipeline:
+    def __init__(self, config: PipelineConfig, K4, width, height, device="cpu"):
+        check_config(config)
+        self.cfg = config
+        self.device = resolve_device(device)
+        self.K4 = np.asarray(K4, np.float32)
+        self.K4_dev = torch.from_numpy(self.K4).to(self.device)
+        self.width = width
+        self.height = height
+        self.map = SceneMap(max_frames=config.max_map_frames,
+                            max_points=config.max_map_points,
+                            max_kp=_feat_capacity(config), K4=self.K4)
+        self.feat_cfg = FeatureConfig(n_features=config.n_features,
+                                      n_levels=config.n_levels,
+                                      scale_factor=config.scale_factor,
+                                      detector=config.detector)
+        self.initialized = False
+        self.ref_slot = None
+        self.ref_feats: FrameFeatures | None = None
+        self.last_slot = None
+        self.last_feats: FrameFeatures | None = None
+        self.prev_extr = None
+        self.last_extr = None
+        self.kf_counter = 0
+        self.trajectory: list[TrackRecord] = []
+        self.stats = {"frames": 0, "keyframes": 0, "tracking_failures": 0}
+        self.timers = PhaseTimer()
+        self._prev_track = None  # (xyz [M,3], trackable [M], ids [M])
+        self._last_kf_slot = None
+        self._kf_ref_inliers = None
+        self._frames_since_kf = 0
+
+    # ------------------------------------------------------------------
+    # device helpers
+    # ------------------------------------------------------------------
+
+    def _t(self, a, dtype=None):
+        """numpy -> tensor on the pipeline's device (uint32 keeps its bits
+        as int32)."""
+        a = np.asarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        t = torch.from_numpy(np.array(a)).to(self.device)
+        return t if dtype is None else t.to(dtype)
+
+    def _dev_desc(self, f: FrameFeatures):
+        if f.desc_dev is None:
+            f.desc_dev = self._t(f.desc)
+            f.valid_dev = self._t(f.valid)
+        return f.desc_dev, f.valid_dev
+
+    def _features(self, f):
+        """Device Features -> FrameFeatures (one host fetch)."""
+        return FrameFeatures(
+            xy=f.xy.cpu().numpy(), octave=f.octave.cpu().numpy(),
+            sigma2=f.sigma2.cpu().numpy(),
+            desc=f.desc.cpu().numpy().view(np.uint32),
+            valid=f.valid.cpu().numpy(), desc_dev=f.desc, valid_dev=f.valid)
+
+    def _gray(self, gray):
+        return self._t(np.asarray(gray, np.float32))
+
+    def detect(self, gray) -> FrameFeatures:
+        with self.timers.phase("detect"):
+            return self._features(detect_and_describe(self._gray(gray),
+                                                      self.feat_cfg))
+
+    def _match_prev(self, f, prev: FrameFeatures):
+        desc_p, valid_p = self._dev_desc(prev)
+        return match_descriptors_fused(desc_p, f.desc, valid_a=valid_p,
+                                       valid_b=f.valid, ratio=self.cfg.match_ratio)
+
+    def detect_and_match(self, gray, prev: FrameFeatures):
+        """Detect the current frame and match prev -> current."""
+        with self.timers.phase("frontend"):
+            f = detect_and_describe(self._gray(gray), self.feat_cfg)
+            idx, dist = self._match_prev(f, prev)
+            return self._features(f), idx.cpu().numpy(), dist.cpu().numpy()
+
+    def _track_fused(self, gray, prev: FrameFeatures, pred_extr):
+        """Detect + match + landmark association + motion-only BA of one
+        tracked frame. Returns (feats, idx, dist, ok, rt6, inliers) on the
+        host."""
+        cfg = self.cfg
+        with self.timers.phase("frontend"):
+            xyz, okm, _ids = self._prev_track
+            f = detect_and_describe(self._gray(gray), self.feat_cfg)
+            idx, dist = self._match_prev(f, prev)
+            safe = torch.clamp(idx, min=0).long()
+            ok = (idx >= 0) & self._t(okm) & (dist < cfg.assoc_max_dist)
+            ok = ok & (torch.cumsum(ok.to(torch.int64), 0) <= cfg.max_track_obs)
+            mcfg = MotionOnlyConfig(outer_iters=cfg.motion_outer,
+                                    inner_iters=cfg.motion_inner, robust=True)
+            rt, inl = motion_only_ba(
+                self.K4_dev, self._t(np.asarray(pred_extr, np.float32))[None],
+                self._t(xyz)[None], f.xy[safe][None], f.sigma2[safe][None],
+                ok[None], mcfg)
+            feats = self._features(f)
+            return (feats, idx.cpu().numpy(), dist.cpu().numpy(),
+                    ok.cpu().numpy(), rt[0].cpu().numpy().astype(np.float64),
+                    inl[0].cpu().numpy())
+
+    def _capture_track_state(self, slot, feats):
+        """Per-keypoint landmark state of the new last frame for the next
+        frame's association: positions, the >= 2-observation mask, ids."""
+        m = self.map
+        M = len(feats.desc)
+        kp_pt = m.kp_pt[slot, :M].astype(np.int64)
+        has = kp_pt >= 0
+        ok = has & (m.point_obs_counts(kp_pt) >= 2)
+        xyz = np.zeros((M, 3), np.float32)
+        xyz[has] = m.pt_pos[kp_pt[has]]
+        self._prev_track = (xyz, ok, np.where(ok, kp_pt, -1))
+
+    # ------------------------------------------------------------------
+    # bundle adjustment
+    # ------------------------------------------------------------------
+
+    def _flat_problem(self, snap):
+        return BAProblem(
+            K4=self._t(snap.K4), cam_idx=self._t(snap.cam_idx, torch.int64),
+            pt_idx=self._t(snap.pt_idx, torch.int64), uv=self._t(snap.uv),
+            sigma2=self._t(snap.sigma2), valid=self._t(snap.valid),
+            cam_fixed=self._t(snap.cam_fixed),
+            pt_fixed=torch.zeros(snap.points.shape[0], dtype=torch.bool,
+                                 device=self.device))
+
+    def _solve_ba(self, snap, max_iters):
+        with self.timers.phase("bundle_adjust"):
+            n_obs = int(np.asarray(snap.valid).sum())
+            layout = self.cfg.ba_layout
+            if layout == "auto":
+                layout = ("dense_landmark"
+                          if n_obs >= self.cfg.ba_layout_auto_min_obs else "flat")
+            lm_cfg = LMConfig(max_iters=max_iters, solver=self.cfg.ba_solver)
+            prob = self._flat_problem(snap)
+            extr, points = self._t(snap.extr), self._t(snap.points)
+            if layout == "dense_landmark":
+                dense, _dropped, _O = densify_problem_auto(
+                    snap.K4, snap.cam_idx, snap.pt_idx, snap.uv, snap.sigma2,
+                    snap.valid, snap.cam_fixed, snap.points.shape[0],
+                    max_obs=self.cfg.ba_max_obs_per_pt, device=self.device)
+                cams, pts, info = dense_ba_solve(dense, extr, points, lm_cfg)
+            else:
+                cams, pts, info = ba_solve(prob, extr, points, lm_cfg)
+            # post-solve chi2 pruning in the flat layout, then one fetch
+            new_valid = prune_outliers_cams(prob, cams, pts)
+            self.map.writeback(snap, cams.cpu().numpy(), pts.cpu().numpy(),
+                               new_valid.cpu().numpy())
+            return info
+
+    def global_ba(self, max_iters=None):
+        """Global BA over all active keyframes (first one fixed)."""
+        kfs = self.map.active_keyframes().tolist()
+        if len(kfs) < 2:
+            return None
+        snap = self.map.snapshot_problem(kfs, min_obs=2)
+        return self._solve_ba(snap, max_iters or self.cfg.kf_ba_iters)
+
+    def local_ba(self, center_kf, max_iters=None):
+        """Window = center + best covisible; observers of window points enter
+        as fixed cameras."""
+        nbrs, _ = self.map.best_covisible(center_kf, self.cfg.local_window)
+        window = [center_kf] + [int(k) for k in nbrs]
+        fixed_extra, _pts = self.map.window_closure(window)
+        fixed_extra = set(int(k) for k in fixed_extra)
+        fixed_mask = np.zeros(len(window), bool)
+        if not fixed_extra:
+            fixed_mask[int(np.argmin(window))] = True
+        snap = self.map.snapshot_problem(window, fixed_mask=fixed_mask, min_obs=2,
+                                         extra_fixed_slots=sorted(fixed_extra))
+        return self._solve_ba(snap, max_iters or self.cfg.kf_ba_iters)
+
+    def _motion_only_batch(self, E0, P, U, S, V, robust=True):
+        cfg = MotionOnlyConfig(outer_iters=self.cfg.motion_outer,
+                               inner_iters=self.cfg.motion_inner, robust=robust)
+        rt, inl = motion_only_ba(self.K4_dev, self._t(E0), self._t(P),
+                                 self._t(U), self._t(S), self._t(V), cfg)
+        return rt.cpu().numpy().astype(np.float64), inl.cpu().numpy()
+
+    def motion_only(self, extr0, pts3d, uv, sigma2, robust=True):
+        """Single-frame motion-only BA, first max_track_obs associations."""
+        M = self.cfg.max_track_obs
+        n = min(len(pts3d), M)
+        P = np.zeros((1, M, 3), np.float32)
+        U = np.zeros((1, M, 2), np.float32)
+        S = np.ones((1, M), np.float32)
+        V = np.zeros((1, M), bool)
+        P[0, :n] = pts3d[:n]
+        U[0, :n] = uv[:n]
+        S[0, :n] = sigma2[:n]
+        V[0, :n] = True
+        rt, inl = self._motion_only_batch(
+            np.asarray(extr0, np.float32)[None], P, U, S, V, robust)
+        return rt[0], inl[0, :n]
+
+    # ------------------------------------------------------------------
+    # initialization
+    # ------------------------------------------------------------------
+
+    def _init_gtdepth(self, cur_slot, cur_feats, ref_depth, matches, dists):
+        """Bootstrap from the reference frame's depth map."""
+        m = self.map
+        ref = self.ref_slot
+        rf = self.ref_feats
+        depths = sample_depth_bilinear(ref_depth, rf.xy)
+        ref_extr = m.kf_pose[ref]
+        pose_ref = np_se3.rt6_inverse(ref_extr)
+        K = self.K4
+        kp_point = np.full(len(rf.xy), -1, np.int64)
+        for kp in range(len(rf.xy)):
+            if not rf.valid[kp] or not np.isfinite(depths[kp]):
+                continue
+            d = depths[kp]
+            xc = np.array([(rf.xy[kp, 0] - K[2]) / K[0] * d,
+                           (rf.xy[kp, 1] - K[3]) / K[1] * d, d])
+            xw = np_se3.rt6_apply(pose_ref, xc)
+            pt = m.add_point(xw, desc=rf.desc[kp], first_kf=self.kf_counter)
+            m.add_observation(pt, ref, kp)
+            m.set_point_scale_bounds(pt, np.linalg.norm(xc), rf.octave[kp],
+                                     self.cfg.scale_factor, self.cfg.n_levels)
+            kp_point[kp] = pt
+        ref_img = getattr(self, "_ref_image", None)
+        if ref_img is not None:
+            created = np.nonzero(kp_point >= 0)[0]
+            m.pt_color[kp_point[created]] = sample_color_bilinear(
+                ref_img, rf.xy[created])
+
+        assoc = [(kp_point[kp_ref], kp_cur) for kp_ref, kp_cur in enumerate(matches)
+                 if kp_cur >= 0 and kp_point[kp_ref] >= 0]
+        if len(assoc) < self.cfg.min_track_points:
+            return False
+        assoc_pt = np.array([a[0] for a in assoc], np.int64)
+        assoc_kp = np.array([a[1] for a in assoc], np.int64)
+        extr, inl = self.motion_only(ref_extr.copy(), m.pt_pos[assoc_pt],
+                                     cur_feats.xy[assoc_kp],
+                                     cur_feats.sigma2[assoc_kp])
+        m.set_pose(cur_slot, extr)
+        for i in np.nonzero(inl)[0]:
+            m.add_observation(int(assoc_pt[i]), cur_slot, int(assoc_kp[i]))
+        self._triangulate_pairs(ref, cur_slot, rf, cur_feats, matches,
+                                exclude_with_points=True)
+        m.set_keyframe(ref)
+        m.set_keyframe(cur_slot)
+        self.kf_counter += 2
+        m.refresh_frame_points(cur_slot)
+        m.update_covisibility(cur_slot, self.cfg.covis_threshold)
+        m.update_covisibility(ref, self.cfg.covis_threshold)
+        return True
+
+    # ------------------------------------------------------------------
+    # triangulation of new landmarks at keyframes
+    # ------------------------------------------------------------------
+
+    def _tri_precondition_ok(self, slot_a, slot_b):
+        """Baseline / median scene depth >= 0.01."""
+        m = self.map
+        tracked = m.kp_pt[slot_b, : m.kf_nkp[slot_b]]
+        tracked = tracked[tracked >= 0]
+        if len(tracked) < 5:
+            return True
+        extr_b = m.kf_pose[slot_b]
+        R_b = np_se3.aa_to_R(extr_b[:3])
+        z = m.pt_pos[tracked].astype(np.float64) @ R_b[2] + extr_b[5]
+        med_depth = float(np.median(z[z > 0])) if (z > 0).any() else np.inf
+        baseline = np.linalg.norm(np_se3.rt6_inverse(m.kf_pose[slot_a])[3:]
+                                  - np_se3.rt6_inverse(extr_b)[3:])
+        return not (np.isfinite(med_depth)
+                    and baseline / max(med_depth, 1e-9) < 0.01)
+
+    def _create_triangulated(self, slot_a, slot_b, fa, fb, pair_a, pair_b,
+                             pts, ok, image=None, image_side="b",
+                             recheck=False):
+        """Insert accepted triangulations as landmarks (+ observations, scale
+        bounds, color). recheck: skip pairs whose keypoints gained a landmark
+        since the candidates were collected."""
+        m = self.map
+        center_b = np_se3.rt6_inverse(m.kf_pose[slot_b])[3:]
+        colors = None
+        if image is not None:
+            kp_xy = fa.xy[pair_a] if image_side == "a" else fb.xy[pair_b]
+            colors = sample_color_bilinear(image, kp_xy)
+        n = 0
+        for i in np.nonzero(ok)[0]:
+            if recheck and (m.kp_pt[slot_a, pair_a[i]] >= 0
+                            or m.kp_pt[slot_b, pair_b[i]] >= 0):
+                continue
+            pt = m.add_point(pts[i], desc=fb.desc[pair_b[i]],
+                             first_kf=self.kf_counter)
+            if m.add_observation(pt, slot_a, int(pair_a[i])) != 1:
+                m.erase_point(pt)
+                continue
+            if m.add_observation(pt, slot_b, int(pair_b[i])) != 1:
+                m.erase_point(pt)
+                continue
+            m.set_point_scale_bounds(pt, np.linalg.norm(pts[i] - center_b),
+                                     fb.octave[pair_b[i]], self.cfg.scale_factor,
+                                     self.cfg.n_levels)
+            if colors is not None:
+                m.pt_color[pt] = colors[i]
+            n += 1
+        return n
+
+    def _triangulate(self, extr_a, extr_b, xa, xb, sa, sb, valid):
+        """Gated triangulation on the device; extr_b/xa/... may carry a
+        leading neighbour axis. Returns host (points, ok)."""
+        pts, ok = triangulate_gated(
+            self.K4_dev, self._t(np.asarray(extr_a, np.float32)),
+            self._t(np.asarray(extr_b, np.float32)), self._t(xa), self._t(xb),
+            self._t(sa), self._t(sb), self._t(valid))
+        return pts.cpu().numpy(), ok.cpu().numpy()
+
+    def _triangulate_pairs(self, slot_a, slot_b, fa, fb, matches,
+                           exclude_with_points=True, image=None, image_side="b"):
+        """Triangulate matched keypoint pairs that lack landmarks."""
+        m = self.map
+        pair_a = np.nonzero(matches >= 0)[0]
+        pair_b = matches[pair_a]
+        if exclude_with_points:
+            free = (m.kp_pt[slot_a, pair_a] < 0) & (m.kp_pt[slot_b, pair_b] < 0)
+            pair_a, pair_b = pair_a[free], pair_b[free]
+        if len(pair_a) == 0 or not self._tri_precondition_ok(slot_a, slot_b):
+            return 0
+        pts, ok = self._triangulate(
+            m.kf_pose[slot_a], m.kf_pose[slot_b], fa.xy[pair_a], fb.xy[pair_b],
+            fa.sigma2[pair_a], fb.sigma2[pair_b], np.ones(len(pair_a), bool))
+        return self._create_triangulated(slot_a, slot_b, fa, fb, pair_a, pair_b,
+                                         pts, ok, image=image,
+                                         image_side=image_side)
+
+    def _triangulate_neighbors(self, kf, feats, jobs, image=None):
+        """Batched neighbourhood triangulation: one device call over every
+        neighbour's new pairs, then landmark creation in neighbour order with
+        a staleness recheck. jobs: (nb_slot, pair_kf, pair_nb, nb_feats)."""
+        m = self.map
+        jobs = [j for j in jobs if len(j[1]) and self._tri_precondition_ok(kf, j[0])]
+        if not jobs:
+            return 0
+        P = max(len(j[1]) for j in jobs)
+        NB = len(jobs)
+        extr_b = np.zeros((NB, 6), np.float32)
+        xa = np.zeros((NB, P, 2), np.float32)
+        xb = np.zeros((NB, P, 2), np.float32)
+        sa = np.ones((NB, P), np.float32)
+        sb = np.ones((NB, P), np.float32)
+        vd = np.zeros((NB, P), bool)
+        for bi, (nb, pa, pb, nf) in enumerate(jobs):
+            k = len(pa)
+            extr_b[bi] = m.kf_pose[nb]
+            xa[bi, :k] = feats.xy[pa]
+            xb[bi, :k] = nf.xy[pb]
+            sa[bi, :k] = feats.sigma2[pa]
+            sb[bi, :k] = nf.sigma2[pb]
+            vd[bi, :k] = True
+        pts, ok = self._triangulate(m.kf_pose[kf], extr_b, xa, xb, sa, sb, vd)
+        n = 0
+        for bi, (nb, pa, pb, nf) in enumerate(jobs):
+            k = len(pa)
+            n += self._create_triangulated(kf, nb, feats, nf, pa, pb,
+                                           pts[bi, :k], ok[bi, :k], image=image,
+                                           image_side="a", recheck=True)
+            # pairs whose kf keypoint gained a landmark from an earlier
+            # neighbour's job take the gated transfer instead
+            pt_now = m.kp_pt[kf, pa]
+            stale = np.nonzero((pt_now >= 0) & (m.kp_pt[nb, pb] < 0))[0]
+            if len(stale):
+                gate = self._transfer_gate(pt_now[stale], nb, pb[stale])
+                for i in stale[gate]:
+                    m.add_observation(int(pt_now[i]), nb, int(pb[i]))
+        return n
+
+    # ------------------------------------------------------------------
+    # neighbourhood search & fusion
+    # ------------------------------------------------------------------
+
+    def _transfer_gate(self, pt_ids, kf, kp_ids):
+        """Cheirality, chi2 < 5.991, scale envelope and viewing-angle gates
+        for adding landmark observations to keyframe `kf`."""
+        m = self.map
+        if len(pt_ids) == 0:
+            return np.zeros(0, bool)
+        X = m.pt_pos[pt_ids].astype(np.float64)
+        extr = m.kf_pose[kf]
+        R = np_se3.aa_to_R(extr[:3])
+        center = np_se3.rt6_inverse(extr)[3:]
+        xc = X @ R.T + extr[3:]
+        z = xc[:, 2]
+        zs = np.where(np.abs(z) < 1e-9, 1e-9, z)
+        K = self.K4
+        u = K[0] * xc[:, 0] / zs + K[2]
+        v = K[1] * xc[:, 1] / zs + K[3]
+        uv_kp = m.kp_xy[kf, kp_ids]
+        sig2 = m.kp_sigma2[kf, kp_ids]
+        chi2 = ((u - uv_kp[:, 0]) ** 2 + (v - uv_kp[:, 1]) ** 2) / np.maximum(sig2, 1e-12)
+        ok = (z > 0) & (chi2 < 5.991)
+        dist = np.linalg.norm(X - center, axis=1)
+        dmin = m.pt_dmin[pt_ids]
+        dmax = m.pt_dmax[pt_ids]
+        has_env = np.isfinite(dmax) & (dmax > 0)
+        ok &= ~has_env | ((dist > 0.8 * dmin) & (dist < 1.2 * dmax))
+        dirs = m.point_view_dirs(pt_ids)
+        cur = X - center
+        cur = cur / np.maximum(np.linalg.norm(cur, axis=1)[:, None], 1e-12)
+        has_dir = np.linalg.norm(dirs, axis=1) > 0.5
+        ok &= ~has_dir | (np.sum(dirs * cur, axis=1) > 0.5)
+        return ok
+
+    def search_in_neighbors(self, kf, feats: FrameFeatures):
+        with self.timers.phase("search_in_neighbors"):
+            return self._search_in_neighbors(kf, feats)
+
+    def _search_in_neighbors(self, kf, feats: FrameFeatures):
+        """Re-match the new keyframe against its covisibility neighbourhood
+        (20 best covisible + 5 best of each): transfer observations, fuse
+        duplicate landmarks, triangulate new ones."""
+        m = self.map
+        n1, _ = m.best_covisible(kf, self.cfg.neighbor_search_n1)
+        neighborhood = []
+        seen = {kf}
+        for nb in n1:
+            if int(nb) not in seen:
+                neighborhood.append(int(nb))
+                seen.add(int(nb))
+            n2, _ = m.best_covisible(int(nb), self.cfg.neighbor_search_n2)
+            for nb2 in n2:
+                if int(nb2) not in seen:
+                    neighborhood.append(int(nb2))
+                    seen.add(int(nb2))
+        if not neighborhood:
+            return {"fused": 0, "transferred": 0, "triangulated": 0}
+
+        # one kernel-A launch over all neighbours (batch axis)
+        descs_b = np.stack([m.kp_desc[nb] for nb in neighborhood])
+        valids_b = np.zeros((len(neighborhood), m.max_kp), bool)
+        for bi, nb in enumerate(neighborhood):
+            valids_b[bi, : m.kf_nkp[nb]] = True
+        with self.timers.phase("match"):
+            desc_a, valid_a = self._dev_desc(feats)
+            idx_all, _ = match_descriptors_batch(
+                desc_a, self._t(descs_b), valid_a=valid_a,
+                valids_b=self._t(valids_b), ratio=self.cfg.match_ratio,
+                max_dist=self.cfg.search_max_dist)
+            idx_all = idx_all.cpu().numpy()
+
+        n_fused = n_transfer = 0
+        tri_jobs = []
+        for bi, nb in enumerate(neighborhood):
+            nk = m.kf_nkp[nb]
+            nf = FrameFeatures(xy=m.kp_xy[nb, :nk], octave=m.kp_octave[nb, :nk],
+                               sigma2=m.kp_sigma2[nb, :nk],
+                               desc=m.kp_desc[nb, :nk], valid=np.ones(nk, bool))
+            idx = idx_all[bi]
+            kp_cur = np.nonzero(idx >= 0)[0]
+            kp_nb = idx[kp_cur]
+            pt_cur = m.kp_pt[kf, kp_cur]
+            pt_nb = m.kp_pt[nb, kp_nb]
+            # fuse distinct landmarks only when each reprojects onto the other
+            # frame's matched keypoint
+            both = np.nonzero((pt_cur >= 0) & (pt_nb >= 0) & (pt_cur != pt_nb))[0]
+            if len(both):
+                g1 = self._transfer_gate(pt_nb[both], kf, kp_cur[both])
+                g2 = self._transfer_gate(pt_cur[both], nb, kp_nb[both])
+                both = both[g1 & g2]
+            for i in both:
+                a, b = int(pt_cur[i]), int(pt_nb[i])
+                if m.point_obs_count(a) >= m.point_obs_count(b):
+                    m.fuse_points(a, b)
+                else:
+                    m.fuse_points(b, a)
+                n_fused += 1
+            nb_only = np.nonzero((pt_cur < 0) & (pt_nb >= 0))[0]
+            gate = self._transfer_gate(pt_nb[nb_only], kf, kp_cur[nb_only])
+            for i in nb_only[gate]:
+                if m.add_observation(int(pt_nb[i]), kf, int(kp_cur[i])) == 1:
+                    n_transfer += 1
+            cur_only = np.nonzero((pt_cur >= 0) & (pt_nb < 0))[0]
+            gate2 = self._transfer_gate(pt_cur[cur_only], nb, kp_nb[cur_only])
+            for i in cur_only[gate2]:
+                if m.add_observation(int(pt_cur[i]), nb, int(kp_nb[i])) == 1:
+                    n_transfer += 1
+            none_have = (pt_cur < 0) & (pt_nb < 0)
+            if none_have.any():
+                tri_jobs.append((nb, kp_cur[none_have], kp_nb[none_have], nf))
+        n_tri = self._triangulate_neighbors(kf, feats, tri_jobs,
+                                            image=getattr(self, "_cur_image", None))
+        return {"fused": n_fused, "transferred": n_transfer, "triangulated": n_tri}
+
+    # ------------------------------------------------------------------
+    # per-frame tracking
+    # ------------------------------------------------------------------
+
+    def _track_local_map(self, feats, extr, assoc_pt, assoc_kp):
+        """Guided matching against the projected map: project the active
+        >= 2-observation landmarks at `extr`, match their descriptors to the
+        still-unassociated keypoints (ratio 0.9, search_max_dist) inside a
+        pixel window, and return the enlarged association set."""
+        m = self.map
+        cfg = self.cfg
+        cand = m.active_points()
+        if len(cand) == 0:
+            return assoc_pt, assoc_kp
+        X = m.pt_pos[cand].astype(np.float64)
+        R = np_se3.aa_to_R(extr[:3])
+        xc = X @ R.T + extr[3:]
+        z = xc[:, 2]
+        zs = np.where(np.abs(z) < 1e-9, 1e-9, z)
+        K = self.K4
+        u = K[0] * xc[:, 0] / zs + K[2]
+        v = K[1] * xc[:, 1] / zs + K[3]
+        margin = cfg.track_window_px
+        vis = ((z > 0.05) & (u >= -margin) & (u < self.width + margin)
+               & (v >= -margin) & (v < self.height + margin))
+        vis &= ~np.isin(cand, assoc_pt)
+        cand_vis = cand[vis]
+        uv_vis = np.stack([u[vis], v[vis]], -1)
+        well = (m.point_obs_counts(cand_vis) >= 2 if len(cand_vis)
+                else np.zeros(0, bool))
+        cand = cand_vis[well]
+        if len(cand) == 0:
+            return assoc_pt, assoc_kp
+        uv_pred = uv_vis[well]
+        kp_free = feats.valid.copy()
+        kp_free[assoc_kp] = False
+        desc_b, _ = self._dev_desc(feats)
+        idx, _dist = match_descriptors_fused(
+            self._t(m.pt_desc[cand]), desc_b, valid_b=self._t(kp_free),
+            ratio=0.9, max_dist=cfg.search_max_dist)
+        idx = idx.cpu().numpy()
+        hit = idx >= 0
+        if not hit.any():
+            return assoc_pt, assoc_kp
+        d_px = np.linalg.norm(feats.xy[idx[hit]] - uv_pred[hit], axis=1)
+        keep = d_px < cfg.track_window_px
+        return (np.concatenate([assoc_pt, cand[hit][keep].astype(np.int64)]),
+                np.concatenate([assoc_kp, idx[hit][keep].astype(np.int64)]))
+
+    def _predict_extr(self):
+        """Constant-velocity model."""
+        if self.prev_extr is None:
+            return self.last_extr.copy()
+        vel = np_se3.rt6_compose(self.last_extr, np_se3.rt6_inverse(self.prev_extr))
+        return np_se3.rt6_compose(vel, self.last_extr)
+
+    def _estimate_pose(self, cur_feats, assoc_pt, assoc_kp, pred_extr):
+        """Robust motion-only BA over the 2D-3D associations."""
+        if len(assoc_pt) < self.cfg.min_track_points:
+            return pred_extr, np.zeros(len(assoc_pt), bool)
+        return self.motion_only(pred_extr, self.map.pt_pos[assoc_pt],
+                                cur_feats.xy[assoc_kp],
+                                cur_feats.sigma2[assoc_kp])
+
+    def process_frame(self, frame):
+        """Process one FrameData. Returns a status string."""
+        cfg = self.cfg
+        m = self.map
+        prev = self.last_feats if self.initialized else self.ref_feats
+        fused_rt = fused_inl = assoc_ok = pred_extr = None
+        if self.initialized and self._prev_track is not None:
+            pred_extr = self._predict_extr()
+            feats, matches, dists, assoc_ok, fused_rt, fused_inl = (
+                self._track_fused(frame.gray, prev, pred_extr))
+        elif prev is not None:
+            feats, matches, dists = self.detect_and_match(frame.gray, prev)
+        else:
+            feats = self.detect(frame.gray)
+            matches = dists = None
+        self._cur_image = frame.rgb if frame.rgb is not None else frame.gray
+        slot = m.add_frame(frame.timestamp, np.zeros(6), feats.xy, feats.octave,
+                           feats.sigma2, feats.desc,
+                           gt_pose44=frame.gt_cam_to_world)
+        self.stats["frames"] += 1
+
+        if not self.initialized:
+            if self.ref_slot is None:
+                self.ref_slot = slot
+                self.ref_feats = feats
+                self._ref_depth = frame.depth
+                self._ref_image = self._cur_image
+                return "ref"
+            if int((matches >= 0).sum()) <= cfg.min_init_matches:
+                m.erase_frame(slot)
+                return "await-init"
+            if self._init_gtdepth(slot, feats, self._ref_depth, matches, dists):
+                self.initialized = True
+                self._last_kf_slot = slot
+                self.last_slot = slot
+                self.last_feats = feats
+                self._capture_track_state(slot, feats)
+                self.last_extr = m.kf_pose[slot].copy()
+                self.prev_extr = m.kf_pose[self.ref_slot].copy()
+                self.trajectory.append(TrackRecord(
+                    m.kf_timestamp[self.ref_slot], self.ref_slot,
+                    m.kf_pose[self.ref_slot].copy(), True))
+                self.trajectory.append(TrackRecord(
+                    frame.timestamp, slot, self.last_extr.copy(), True))
+                self.stats["keyframes"] += 2
+                return "initialized"
+            # failed bootstrap: the current frame becomes the reference
+            m.erase_frame(self.ref_slot)
+            for pt in m.active_points():
+                if m.point_obs_count(int(pt)) == 0:
+                    m.erase_point(int(pt))
+            self.ref_slot = slot
+            self.ref_feats = feats
+            self._ref_depth = frame.depth
+            self._ref_image = self._cur_image
+            return "ref-reset"
+
+        # ---- tracking ----
+        n_matches = max(int((matches >= 0).sum()), 1)
+        pair_last = np.nonzero(matches >= 0)[0]
+        lp = m.kp_pt[self.last_slot, pair_last]
+        has_pt = (lp >= 0) & (dists[pair_last] < cfg.assoc_max_dist)
+        if assoc_ok is not None:
+            ok_idx = np.nonzero(assoc_ok)[0]
+            assoc_pt = m.kp_pt[self.last_slot, ok_idx].astype(np.int64)
+            assoc_kp = matches[ok_idx].astype(np.int64)
+        else:  # first tracked frame without captured state
+            pair_cur = matches[pair_last]
+            assoc_pt = lp[has_pt].astype(np.int64)
+            assoc_kp = pair_cur[has_pt].astype(np.int64)
+            well = (m.point_obs_counts(assoc_pt) >= 2 if len(assoc_pt)
+                    else np.zeros(0, bool))
+            assoc_pt, assoc_kp = assoc_pt[well], assoc_kp[well]
+
+        assoc_ratio = int(has_pt.sum()) / n_matches
+        if assoc_ratio <= cfg.tracking_fail_ratio:
+            self.stats["tracking_failures"] += 1
+            return "tracking-lost"
+
+        if pred_extr is None:
+            pred_extr = self._predict_extr()
+        if fused_rt is not None:
+            if len(assoc_pt) < cfg.min_track_points:
+                extr, inl = pred_extr, np.zeros(len(assoc_pt), bool)
+            else:
+                extr, inl = fused_rt, fused_inl[ok_idx]
+        else:
+            extr, inl = self._estimate_pose(feats, assoc_pt, assoc_kp, pred_extr)
+
+        # guided local-map second pass, then re-estimate
+        if cfg.track_local_map:
+            assoc_pt2, assoc_kp2 = self._track_local_map(feats, extr, assoc_pt,
+                                                         assoc_kp)
+            if len(assoc_pt2) > len(assoc_pt):
+                extr2, inl2 = self._estimate_pose(feats, assoc_pt2, assoc_kp2, extr)
+                if inl2.sum() >= inl.sum():
+                    extr, inl = extr2, inl2
+                    assoc_pt, assoc_kp = assoc_pt2, assoc_kp2
+
+        m.set_pose(slot, extr)
+        inl_idx = np.nonzero(inl)[0]
+        for i in inl_idx:
+            m.add_observation(int(assoc_pt[i]), slot, int(assoc_kp[i]))
+        m.refresh_point_descriptors(assoc_pt[inl_idx])
+
+        ref_kf = self._last_kf_slot
+        rel = (np_se3.rt6_compose(extr, np_se3.rt6_inverse(m.kf_pose[ref_kf]))
+               if ref_kf is not None and m.kf_active[ref_kf] else None)
+        self.trajectory.append(TrackRecord(
+            frame.timestamp, slot, extr.copy(), False, ref_kf=ref_kf, rel=rel,
+            assoc_pt=assoc_pt[inl_idx].copy(),
+            assoc_uv=feats.xy[assoc_kp[inl_idx]].copy(),
+            assoc_sig=feats.sigma2[assoc_kp[inl_idx]].copy(),
+            feats=(FrameFeatures(xy=feats.xy, octave=feats.octave,
+                                 sigma2=feats.sigma2, desc=feats.desc,
+                                 valid=feats.valid)
+                   if cfg.refine_guided else None),
+            assoc_kp=assoc_kp[inl_idx].copy() if cfg.refine_guided else None))
+
+        is_keyframe = assoc_ratio <= cfg.keyframe_ratio
+        if cfg.track_local_map and not is_keyframe:
+            # keyframe need: inlier decay vs the last keyframe, max interval
+            self._frames_since_kf += 1
+            ref = self._kf_ref_inliers
+            if ref is not None and int(np.sum(inl)) < cfg.kf_ref_decay * ref:
+                is_keyframe = True
+            elif self._frames_since_kf >= cfg.kf_max_interval:
+                is_keyframe = True
+        if is_keyframe:
+            m.set_keyframe(slot)
+            self.kf_counter += 1
+            self.stats["keyframes"] += 1
+            self.trajectory[-1].is_keyframe = True
+            self._kf_ref_inliers = max(int(np.sum(inl)), cfg.min_track_points)
+            self._frames_since_kf = 0
+            self._last_kf_slot = slot
+            m.cull_recent_points(self.kf_counter, cfg.cull_point_window,
+                                 cfg.cull_point_min_obs)
+            self._triangulate_pairs(self.last_slot, slot, self.last_feats, feats,
+                                    matches, image=self._cur_image,
+                                    image_side="b")
+            m.update_covisibility(slot, cfg.covis_threshold)
+            self.search_in_neighbors(slot, feats)
+            m.refresh_frame_points(slot)
+            m.update_covisibility(slot, cfg.covis_threshold)
+            if cfg.local_ba:
+                self.local_ba(slot)
+            else:
+                self.global_ba()
+            if cfg.cull_frames:
+                m.cull_redundant_keyframes(cfg.cull_kf_redundancy,
+                                           cfg.cull_kf_min_other)
+
+        if self.last_slot is not None and not m.kf_is_keyframe[self.last_slot]:
+            m.erase_frame(self.last_slot)
+        self.prev_extr = self.last_extr
+        self.last_extr = m.kf_pose[slot].copy()
+        self.last_slot = slot
+        self.last_feats = feats
+        self._capture_track_state(slot, feats)
+        return "keyframe" if is_keyframe else "tracked"
+
+    # ------------------------------------------------------------------
+    # finalize
+    # ------------------------------------------------------------------
+
+    def finalize(self):
+        """Final global BA (final_ba_outer rounds), then trajectory
+        refinement of the tracked (non-key) frames, twice with refine_guided."""
+        for _ in range(self.cfg.final_ba_outer):
+            self.global_ba(self.cfg.final_ba_iters)
+        self._refine_trajectory()
+        if self.cfg.refine_guided:
+            self._refine_trajectory()
+
+    def _refine_trajectory(self):
+        """Re-solve every tracked frame by batched motion-only BA against the
+        BA-refined map (after a guided re-association with refine_guided),
+        accepting a re-solve only where the tracking-time pose is demonstrably
+        broken and the re-solve fixes it (the reference's acceptance rules)."""
+        m = self.map
+        cfg = self.cfg
+        if len(m.active_keyframes()) < 3:
+            return
+        recs = [r for r in self.trajectory
+                if not r.is_keyframe and r.assoc_pt is not None
+                and len(r.assoc_pt) >= cfg.min_track_points]
+        if not recs:
+            return
+        n_orig = {}
+        if cfg.refine_guided:
+            for rec in recs:
+                if rec.feats is None or rec.assoc_kp is None:
+                    continue
+                live = m.pt_active[rec.assoc_pt] == 1
+                ap = rec.assoc_pt[live].astype(np.int64)
+                ak = rec.assoc_kp[live].astype(np.int64)
+                ap2, ak2 = self._track_local_map(rec.feats, self._record_extr(rec),
+                                                 ap, ak)
+                if len(ap2) > len(ap):
+                    n_orig[id(rec)] = len(ap)
+                    rec.assoc_pt = ap2
+                    rec.assoc_kp = ak2
+                    rec.assoc_uv = rec.feats.xy[ak2].copy()
+                    rec.assoc_sig = rec.feats.sigma2[ak2].copy()
+        M = cfg.max_track_obs
+        B = len(recs)
+        P = np.zeros((B, M, 3), np.float32)
+        U = np.zeros((B, M, 2), np.float32)
+        S = np.ones((B, M), np.float32)
+        V = np.zeros((B, M), bool)
+        ORIG = np.zeros((B, M), bool)
+        E0 = np.zeros((B, 6), np.float32)
+        for b, rec in enumerate(recs):
+            live = np.nonzero(m.pt_active[rec.assoc_pt] == 1)[0]
+            if len(live) > M:
+                order = np.argsort(rec.assoc_sig[live], kind="stable")
+                live = np.sort(live[order[:M]])
+            n = len(live)
+            P[b, :n] = m.pt_pos[rec.assoc_pt[live]]
+            U[b, :n] = rec.assoc_uv[live]
+            S[b, :n] = rec.assoc_sig[live]
+            V[b, :n] = True
+            ORIG[b, :n] = live < n_orig.get(id(rec), len(rec.assoc_pt))
+            E0[b] = self._record_extr(rec)
+        rt, inl = self._motion_only_batch(E0, P, U, S, V)
+
+        def project(extr, b):
+            R = np_se3.aa_to_R(extr[:3])
+            xc = P[b] @ R.T + extr[3:]
+            z = xc[:, 2]
+            zs = np.where(np.abs(z) < 1e-9, 1e-9, z)
+            u = self.K4[0] * xc[:, 0] / zs + self.K4[2]
+            v = self.K4[1] * xc[:, 1] / zs + self.K4[3]
+            r2 = ((u - U[b, :, 0]) ** 2 + (v - U[b, :, 1]) ** 2) / np.maximum(S[b], 1e-12)
+            return r2, z
+
+        def huber_cost(extr, b):
+            r2, z = project(extr, b)
+            d = 2.4477
+            nrm = np.sqrt(np.maximum(r2, 1e-20))
+            rho = np.where(nrm <= d, 0.5 * r2, d * (nrm - 0.5 * d))
+            rho = np.where(z > 1e-6, rho, 1e4)
+            return float(np.sum(np.where(V[b], rho, 0.0)))
+
+        def chi2_inlier_count(extr, b, mask):
+            chi2, z = project(extr, b)
+            return int(np.sum(V[b] & mask & (chi2 < 5.991) & (z > 1e-6)))
+
+        centers = np.asarray([
+            np_se3.rt6_to_mat44(np_se3.rt6_inverse(self._record_extr(r)))[:3, 3]
+            for r in self.trajectory])
+        steps = np.linalg.norm(np.diff(centers, axis=0), axis=1)
+        if V.any():
+            eps = 0.01 * float(np.median(np.linalg.norm(P[V] - centers.mean(axis=0),
+                                                        axis=1)))
+        else:
+            eps = 1e-3
+        guard = max(3.0 * float(np.median(steps)), eps) if len(steps) else np.inf
+        for b, rec in enumerate(recs):
+            n_constr = int(V[b].sum())
+            n_inl = int(inl[b].sum())
+            if n_inl < max(cfg.min_track_points, 0.5 * n_constr):
+                continue
+            extr_cur = self._record_extr(rec)
+            c_old = np_se3.rt6_to_mat44(np_se3.rt6_inverse(extr_cur))[:3, 3]
+            c_new = np_se3.rt6_to_mat44(np_se3.rt6_inverse(rt[b]))[:3, 3]
+            strong = n_inl >= 3 * cfg.min_track_points and n_inl >= 0.8 * n_constr
+            disp = np.linalg.norm(c_new - c_old)
+            if disp > guard and not (strong and disp <= 10.0 * guard):
+                continue
+            n_live_orig = int(np.sum(V[b] & ORIG[b]))
+            if n_live_orig < cfg.min_track_points:
+                continue
+            n_old_orig = chi2_inlier_count(extr_cur, b, ORIG[b])
+            if n_old_orig >= 0.75 * n_live_orig:
+                continue
+            if chi2_inlier_count(rt[b], b, ORIG[b]) <= n_old_orig:
+                continue
+            if huber_cost(rt[b], b) < huber_cost(extr_cur, b):
+                rec.extr = rt[b]
+                if rec.ref_kf is not None and m.kf_active[rec.ref_kf]:
+                    rec.rel = np_se3.rt6_compose(
+                        rt[b], np_se3.rt6_inverse(m.kf_pose[rec.ref_kf]))
+                else:
+                    rec.rel = None
+
+    # ------------------------------------------------------------------
+    # outputs
+    # ------------------------------------------------------------------
+
+    def _record_extr(self, rec):
+        """The record's current best pose: keyframes read the map; tracked
+        frames ride their reference keyframe through the stored transform."""
+        if rec.is_keyframe and self.map.kf_active[rec.slot]:
+            return self.map.kf_pose[rec.slot]
+        if rec.rel is not None and rec.ref_kf is not None and self.map.kf_active[rec.ref_kf]:
+            return np_se3.rt6_compose(rec.rel, self.map.kf_pose[rec.ref_kf])
+        return rec.extr
+
+    def trajectory_cam_to_world(self, smooth=True):
+        """(timestamps, cam->world 4x4) for every tracked frame.
+
+        Keyframes read the BA-refined map; tracked frames ride their
+        keyframes with segment-interpolated world corrections (the correction
+        at the previous keyframe blended in time with the one observed at the
+        next keyframe). smooth=False returns the causal trajectory."""
+        m = self.map
+        traj = self.trajectory
+        n = len(traj)
+        act = [r.is_keyframe and m.kf_active[r.slot] for r in traj]
+        inv, comp = np_se3.rt6_inverse, np_se3.rt6_compose
+        if not smooth:
+            ts = np.asarray([r.timestamp for r in traj])
+            mats = np.asarray([np_se3.rt6_to_mat44(inv(
+                m.kf_pose[r.slot] if act[i] else r.extr))
+                for i, r in enumerate(traj)])
+            return ts, mats
+        next_kf = [None] * n
+        nk = None
+        for i in range(n - 1, -1, -1):
+            if act[i]:
+                nk = i
+            next_kf[i] = nk
+        prev_kf = [None] * n
+        pk = None
+        for i in range(n):
+            if act[i]:
+                pk = i
+            prev_kf[i] = pk
+        ts, mats = [], []
+        for i, rec in enumerate(traj):
+            if act[i]:
+                extr = m.kf_pose[rec.slot]
+            else:
+                w_a = None
+                if rec.rel is not None and rec.ref_kf is not None and m.kf_active[rec.ref_kf]:
+                    kfA_r = comp(inv(rec.rel), rec.extr)
+                    w_a = comp(inv(kfA_r), m.kf_pose[rec.ref_kf])
+                elif prev_kf[i] is not None:
+                    prec = traj[prev_kf[i]]
+                    w_a = comp(inv(prec.extr), m.kf_pose[prec.slot])
+                if w_a is None:
+                    extr = rec.extr
+                else:
+                    w = w_a
+                    j, p = next_kf[i], prev_kf[i]
+                    if j is not None and p is not None:
+                        nrec = traj[j]
+                        w_b = comp(inv(nrec.extr), m.kf_pose[nrec.slot])
+                        span = nrec.timestamp - traj[p].timestamp
+                        if span > 1e-9:
+                            s = np.clip((rec.timestamp - traj[p].timestamp) / span,
+                                        0.0, 1.0)
+                            w = (1.0 - s) * w_a + s * w_b
+                    extr = comp(rec.extr, w)
+            ts.append(rec.timestamp)
+            mats.append(np_se3.rt6_to_mat44(inv(extr)))
+        return np.asarray(ts), np.asarray(mats)
+
+    def map_points(self):
+        return self.map.pt_pos[self.map.active_points()].copy()
+
+    def map_points_colored(self):
+        ids = self.map.active_points()
+        return self.map.pt_pos[ids].copy(), self.map.pt_color[ids].copy()
+
+    def run(self, dataset):
+        """Track every frame of `dataset` (up to cfg.max_frames), stopping at
+        tracking loss, then finalize. Returns the stats dict."""
+        for i, frame in enumerate(dataset):
+            if i >= self.cfg.max_frames:
+                break
+            status = self.process_frame(frame)
+            if self.cfg.verbose:
+                print(f"[{i:4d}] {status}  kfs={self.stats['keyframes']} "
+                      f"pts={len(self.map.active_points())}")
+            if status == "tracking-lost":
+                break
+        self.finalize()
+        self.stats["phase_times"] = self.timers.report()
+        return self.stats

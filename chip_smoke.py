@@ -1,0 +1,505 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON object per line, in order; any failure raises and the
+script exits non-zero without printing the final line:
+
+1. environment: torch / CUDA versions and `nvidia-smi` name + power limit
+   (also printed raw on a line of its own);
+2. build: compiles the kernels in bundleadjustment_tpu_torch/csrc/ with nvcc
+   for sm_90a and prints the build seconds;
+3. kernels: each hand-written kernel against its plain PyTorch version on
+   the card, at the shapes the main path gives it (kernel A bit-identical;
+   kernels B and C to the stated tolerances), each timed as device time per
+   call ("ms", torch.profiler kernel durations, or CUDA events where the
+   profiler delivers no kernel records: "ms_source" says which) and as
+   CUDA-event time per back-to-back call ("call_ms", which includes the
+   host's per-call cost);
+4. dense solve: 128 cams / 100k landmarks (the two best-observed cameras
+   fixed, so the solution has no free gauge), 10 LM iterations through the
+   kernels and through the plain versions; costs and cameras must agree and
+   the cost must decrease;
+5. pipeline: writes a TUM-format rendered sequence (640x480, 40 frames) and
+   runs the port's CLI on it with default flags (gtdepth, ba, local BA,
+   3x100 final BA, 1000 features, 8 levels); checks ATE, that every kernel
+   was launched by that run, and the output files; then times the kernels
+   at the pipeline's own final-BA shape.
+
+Then a `{"kernels": [...]}` line and, last, `{"ok": true, "device": ...}`.
+Needs one CUDA device; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+
+# kernel name -> (route, source, TPU kernel it replaces)
+KERNELS = {
+    "hamming_top2": ("cuda", "bundleadjustment_tpu_torch/csrc/hamming.cu",
+                     "bundleadjustment_tpu/ops/pallas_matching.py:125"),
+    "dense_eval_assemble": (
+        "cuda", "bundleadjustment_tpu_torch/csrc/dense_eval.cu",
+        "bundleadjustment_tpu/solvers/pallas_dense_eval.py:255"),
+    "dense_eval_assemble_bs": (
+        "cuda", "bundleadjustment_tpu_torch/csrc/dense_eval.cu",
+        "bundleadjustment_tpu/solvers/pallas_dense_eval.py:338"),
+    "schur_prepare_s": ("cuda", "bundleadjustment_tpu_torch/csrc/schur_s.cu",
+                        "bundleadjustment_tpu/solvers/pallas_dense_eval.py:849"),
+}
+RTOL, ATOL = 2e-4, 2e-3  # block outputs (float atomics reorder the sums)
+COST_RTOL = 1e-5
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_time(fn, reps=20, warmup=3):
+    """Mean milliseconds per call of fn() on the current stream, CUDA events
+    around back-to-back calls. Where the card finishes a call faster than
+    the host issues the next, this is the host's per-call cost."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_time(fn, reps=10, tries=3):
+    """(ms, source): mean milliseconds of device time per call of fn(), the
+    durations of the CUDA kernels it launched from torch.profiler (host gaps
+    excluded), source "profiler". A profiler session now and then delivers
+    no kernel records; after `tries` such sessions the time is taken with
+    CUDA events instead (cuda_time, source "cuda_events")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        total = sum(e.device_time_total for e in kern) / 1e3 / reps
+        if total > 0.0:
+            return total, "profiler"
+    return cuda_time(fn), "cuda_events"
+
+
+def time_pair(kernel_fn, plain_fn):
+    """Kernel and plain version timed in turns: device ms per call ("ms",
+    "plain_ms", with the source of each in "ms_source", "plain_ms_source")
+    and CUDA-event ms per back-to-back call ("call_ms", "plain_call_ms")."""
+    plain_ms, plain_src = device_time(plain_fn)
+    ms, src = device_time(kernel_fn)
+    return {"plain_ms": plain_ms, "ms": ms, "plain_ms_source": plain_src,
+            "ms_source": src, "call_ms": cuda_time(kernel_fn),
+            "plain_call_ms": cuda_time(plain_fn)}
+
+
+def max_abs(a, b):
+    import torch
+
+    return float(torch.max(torch.abs(a.double() - b.double())).item()) if a.numel() else 0.0
+
+
+def check_close(name, got, ref, rtol=RTOL, atol=ATOL, scale=1.0):
+    """Elementwise |got - ref| <= atol + rtol |ref| after dividing both by
+    `scale` (a number or a tensor that broadcasts). Returns max |got - ref|."""
+    import torch
+
+    ok = torch.allclose(got.double() / scale, ref.double() / scale, rtol=rtol,
+                        atol=atol)
+    if not ok:
+        raise AssertionError(f"{name}: max abs err {max_abs(got, ref)} "
+                             f"(rtol {rtol}, atol {atol})")
+    return max_abs(got, ref)
+
+
+def block_scale(name, ref):
+    """Magnitude of each block of a kernel B / C output, broadcastable against
+    it. The kernels sum in another order than the plain versions (float
+    atomics for the per-camera rows, S and b; a loop over the O slots for Vu
+    and g_p), and these sums cancel, so near-zero entries differ by float32
+    round-off of their block's magnitude, not of their own. Each block is
+    held to rtol 2e-4 / atol 2e-3 relative to its own max: red's 21 upper-U
+    columns and its 6 g_c columns apart, each row of Vu, g_p and W, and S and
+    b each as a whole. So a small block (g_c near convergence, b) is not
+    excused by a large one (U, S)."""
+    import torch
+
+    a = ref.detach().double().abs()
+    if name == "red":
+        s = torch.cat([a[:, :21].max().expand(21), a[:, 21:].max().expand(6)])[None]
+    elif name in ("Vu", "g_p"):
+        s = a.amax(dim=1, keepdim=True)
+    elif name == "W":
+        s = a.reshape(18, -1).amax(dim=1).reshape(6, 3, 1, 1)
+    else:
+        s = a.max()
+    return torch.where(s > 0, s, torch.ones_like(s))
+
+
+def check_blocks(tag, name, got, ref):
+    return check_close(f"{tag} {name}", got, ref, scale=block_scale(name, ref))
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_env():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0], "nvidia_smi": smi[0],
+          "device": torch.cuda.get_device_name(0),
+          "device_count": torch.cuda.device_count()})
+    return smi[0]
+
+
+def phase_build():
+    from bundleadjustment_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    secs = kernels.build_all(force=True)
+    for name in kernels.SIGNATURES:
+        kernels.lib(name)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_library_s": secs, "flags": kernels.NVCC_FLAGS})
+
+
+def _hamming_inputs(rng, B, M, device):
+    import numpy as np
+    import torch
+
+    t = rng.integers(0, 2**32, (B, M, 8), dtype=np.uint32)
+    q = t[0, rng.integers(0, M, M)].copy()
+    # flip a few bits so distances spread from 0 up; duplicate rows make ties
+    q ^= rng.integers(0, 2**32, q.shape, dtype=np.uint32) & np.uint32(0x00010001)
+    t[:, 10] = t[:, 11]
+    valid = rng.random((B, M)) > 0.05
+    as_t = lambda a: torch.from_numpy(a.view(np.int32).copy()).to(device)
+    return as_t(q)[None], as_t(t), torch.from_numpy(valid).to(device)
+
+
+def phase_hamming(rng, device, results):
+    import torch
+
+    from bundleadjustment_tpu_torch.ops.hamming import hamming_top2, hamming_top2_plain
+
+    rows = []
+    for B in (1, 25):
+        q, t, v = _hamming_inputs(rng, B, 1000, device)
+        got = hamming_top2(q, t, v)
+        ref = hamming_top2_plain(q, t, v)
+        torch.cuda.synchronize()
+        for g, r, n in zip(got, ref, ("best", "second", "idx")):
+            if not torch.equal(g, r):
+                raise AssertionError(f"hamming_top2 B={B}: {n} not bit-identical")
+        rows.append({"batch": B, "m1": 1000, "m2": 1000, "bit_identical": True,
+                     **time_pair(lambda: hamming_top2(q, t, v),
+                                 lambda: hamming_top2_plain(q, t, v))})
+    results["hamming_top2"] = {"max_abs_err": 0.0, "ms": rows[-1]["ms"],
+                               "plain_ms": rows[-1]["plain_ms"], "shapes": rows}
+    emit({"phase": "kernel", "name": "hamming_top2", "shapes": rows})
+
+
+def synthetic_dense(n_cams, n_pts, obs_per_pt, max_obs, device, copies=1,
+                    fix_gauge=False):
+    """A dense problem from make_synthetic_scene with camera 0 fixed. With
+    copies > 1 every camera is repeated `copies` times and each observation
+    goes to one of its camera's copies at random, so n_cams * copies cameras
+    all hold observations of the same geometry. fix_gauge also fixes the two
+    cameras with the most observations at their true poses, so the solved
+    cameras are unique (as in the JAX package's solve parity test,
+    tests/test_pallas_dense_eval.py, which fixes cameras 0 and 1 of 8). On
+    the 128-camera arc, cameras 0-7 observe nothing: fixing them leaves the
+    similarity gauge of the observed cameras free, and the LM steps then
+    drift along it by float32 noise (on an H100, kernel and plain runs of
+    the 10-iteration solve ended 1.5e-4 to 4.2e-4 apart, and over 5e-4 once;
+    with the gauge fixed here, within 4e-6)."""
+    import numpy as np
+    import torch
+
+    from bundleadjustment_tpu_torch.data.synthetic import make_synthetic_scene
+    from bundleadjustment_tpu_torch.solvers.dense_ba import densify_problem
+
+    sc = make_synthetic_scene(n_cams=n_cams, n_pts=n_pts, obs_per_pt=obs_per_pt,
+                              pixel_noise=0.5, seed=0)
+    rng = np.random.default_rng(1)
+    cam_idx = (sc.cam_idx + n_cams * rng.integers(0, copies, sc.cam_idx.shape)
+               ).astype(np.int32)
+    cam_fixed = np.zeros(n_cams * copies, bool)
+    cam_fixed[0] = True
+    if fix_gauge:
+        n_obs = np.bincount(sc.cam_idx[sc.valid], minlength=n_cams)
+        gauge = np.argsort(-n_obs, kind="stable")[:2]
+        cam_fixed[gauge] = True
+        sc.extr_init[gauge] = sc.extr_gt[gauge]
+    extr = np.tile(sc.extr_init, (copies, 1))
+    prob, _ = densify_problem(sc.K4, cam_idx, sc.pt_idx, sc.uv, sc.sigma2,
+                              sc.valid, cam_fixed, n_pts, max_obs=max_obs,
+                              device=device)
+    cams = torch.from_numpy(extr).to(device)
+    pts = torch.from_numpy(sc.points_init).to(device)
+    return prob, cams, pts
+
+
+def compare_dense_kernels(prob, cams, pts, tag):
+    """Kernels B (seed, bs) and C against their plain versions at one shape.
+    Returns {kernel: {"max_abs_err", "ms", "plain_ms"}}."""
+    import torch
+
+    from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat
+    from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
+    from bundleadjustment_tpu_torch.solvers.dense_ba import _to_cm
+    from bundleadjustment_tpu_torch.solvers.schur import cholesky_solve_nan
+
+    cm = _to_cm(prob)
+    O, L = cm.cam_t.shape
+    K = cm.cam_fixed.shape[0]
+    R = aa_to_rotmat(cams[:, :3]).contiguous()
+    t = cams[:, 3:].contiguous()
+    Xt = pts.T.contiguous()
+    args = (cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t)
+    out = {}
+
+    seed_k = dk.eval_assemble(*args, R, t, Xt)
+    seed_p = dk.eval_assemble_plain(*args, R, t, Xt)
+    torch.cuda.synchronize()
+    errs = [check_close(f"{tag} B cost", seed_k[0], seed_p[0], rtol=COST_RTOL,
+                        atol=0.0)]
+    errs += [check_blocks(f"{tag} B", n, g, r) for g, r, n in
+             zip(seed_k[1:], seed_p[1:], ("red", "Vu", "g_p", "W"))]
+    out["dense_eval_assemble"] = {
+        "max_abs_err": max(errs),
+        **time_pair(lambda: dk.eval_assemble(*args, R, t, Xt),
+                    lambda: dk.eval_assemble_plain(*args, R, t, Xt))}
+
+    cost, red, Vu, g_p, W = seed_p
+    W18 = W.reshape(18, O, L)
+    lam = torch.tensor(1e-4, device=cams.device)
+    c_args = (lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K, red, cm.cam_fixed)
+    s_k = dk.schur_prepare_s(*c_args)
+    s_p = dk.schur_prepare_s_plain(*c_args)
+    torch.cuda.synchronize()
+    errs = [check_blocks(f"{tag} C", "S", s_k[0], s_p[0]),
+            check_blocks(f"{tag} C", "b", s_k[3], s_p[3]),
+            check_close(f"{tag} C zv", s_k[1], s_p[1]),
+            check_close(f"{tag} C vinv6", s_k[2], s_p[2])]
+    out["schur_prepare_s"] = {
+        "max_abs_err": max(errs),
+        **time_pair(lambda: dk.schur_prepare_s(*c_args),
+                    lambda: dk.schur_prepare_s_plain(*c_args))}
+
+    S, _zv, vinv6, b = s_p
+    dc = cholesky_solve_nan(S, b).reshape(6, K).T
+    dc = torch.where(cm.cam_fixed[:, None], torch.zeros_like(dc), dc).contiguous()
+    R_new = (aa_to_rotmat(dc[:, :3]) @ R).contiguous()
+    t_new = (t + dc[:, 3:]).contiguous()
+    bs_args = (*args, R_new, t_new, dc, Xt, W18, vinv6, g_p, cm.pt_valid)
+    bs_k = dk.eval_assemble_bs(*bs_args)
+    bs_p = dk.eval_assemble_bs_plain(*bs_args)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(bs_p[0])):
+        raise AssertionError(f"{tag}: non-finite trial cost")
+    errs = [check_close(f"{tag} Bbs cost", bs_k[0], bs_p[0], rtol=COST_RTOL,
+                        atol=0.0)]
+    errs += [check_blocks(f"{tag} Bbs", n, g, r) for g, r, n in
+             zip(bs_k[1:5], bs_p[1:5], ("red", "Vu", "g_p", "W"))]
+    errs += [check_close(f"{tag} Bbs Xt_new", bs_k[5], bs_p[5])]
+    out["dense_eval_assemble_bs"] = {
+        "max_abs_err": max(errs),
+        **time_pair(lambda: dk.eval_assemble_bs(*bs_args),
+                    lambda: dk.eval_assemble_bs_plain(*bs_args))}
+    return out
+
+
+def phase_dense_kernels(device, results):
+    """B and C at the two solve shapes of the records, and at 600 cameras
+    (12 cameras x 50 copies, 3k landmarks), where kernel B's [K,27] table no
+    longer fits its 48 KB of shared memory and the per-camera rows go to
+    global atomics."""
+    shapes = {}
+    for tag, (nc, npt, opp, mo, copies) in {
+            "64c_10k_O16": (64, 10_000, 8, 16, 1),
+            "128c_100k_O8": (128, 100_000, 6, 8, 1),
+            "600c_3k_O16": (12, 3_000, None, 16, 50)}.items():
+        prob, cams, pts = synthetic_dense(nc, npt, opp, mo, device, copies)
+        res = compare_dense_kernels(prob, cams, pts, tag)
+        O = int(prob.cam_idx.shape[1])
+        shapes[tag] = res
+        emit({"phase": "kernel", "shape": tag, "K": nc * copies, "L": npt,
+              "O": O, **{k: v for k, v in res.items()}})
+    for name in ("dense_eval_assemble", "dense_eval_assemble_bs",
+                 "schur_prepare_s"):
+        results[name] = {
+            "max_abs_err": max(s[name]["max_abs_err"] for s in shapes.values()),
+            "ms": shapes["128c_100k_O8"][name]["ms"],
+            "plain_ms": shapes["128c_100k_O8"][name]["plain_ms"],
+            "shapes": {k: v[name] for k, v in shapes.items()}}
+
+
+def phase_dense_solve(device):
+    import torch
+
+    from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
+    from bundleadjustment_tpu_torch.solvers.dense_ba import dense_ba_solve
+    from bundleadjustment_tpu_torch.solvers.lm import LMConfig
+
+    prob, cams, pts = synthetic_dense(128, 100_000, 6, 8, device, fix_gauge=True)
+    cfg = LMConfig(max_iters=10)
+    out = {}
+    for label, ops in (("kernel", dk.KERNEL_OPS), ("plain", dk.PLAIN_OPS)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, p, info = dense_ba_solve(prob, cams, pts, cfg, ops=ops)
+        torch.cuda.synchronize()
+        out[label] = (c, float(info["cost0"]), float(info["cost"]),
+                      time.perf_counter() - t0)
+    ck, c0, cost_k, sk = out["kernel"]
+    cp, _, cost_p, sp = out["plain"]
+    cam_err = max_abs(ck, cp)
+    rel = abs(cost_k - cost_p) / abs(cost_p)
+    emit({"phase": "dense_solve", "K": 128, "L": 100_000, "iters": 10,
+          "cost0": c0, "cost_kernel": cost_k, "cost_plain": cost_p,
+          "cost_rel_diff": rel, "cams_max_abs_diff": cam_err,
+          "wall_s_kernel": sk, "wall_s_plain": sp})
+    if not (rel < 1e-3 and cam_err < 5e-4 and cost_k < c0):
+        raise AssertionError("dense solve: kernel and plain runs disagree or "
+                             "the cost did not decrease")
+
+
+def write_sequence(root, n_frames):
+    """Render the config-1-shaped sequence and write it in TUM format with an
+    intrinsics.json sidecar."""
+    from bundleadjustment_tpu_torch.data.synthetic import (
+        render_layered_scene,
+        write_tum_format,
+    )
+
+    frames, K4 = render_layered_scene(
+        n_frames=n_frames, width=640, height=480, fx=525.0, fy=525.0,
+        trajectory="forward", motion_step=0.03, seed=11)
+    write_tum_format(root, frames)
+    with open(os.path.join(root, "intrinsics.json"), "w") as f:
+        json.dump({"fx": float(K4[0]), "fy": float(K4[1]), "cx": float(K4[2]),
+                   "cy": float(K4[3]), "width": 640, "height": 480}, f)
+
+
+def phase_pipeline(device, n_frames=40):
+    """Run the port's CLI end to end; returns (pipeline, launch counts)."""
+    import torch
+
+    from bundleadjustment_tpu_torch import cli, kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "seq")
+        write_sequence(data, n_frames)
+        out = os.path.join(tmp, "out")
+        argv = ["--dataset-name", "synthetic", "--dataset-path", data,
+                "--output-path", out, "--frames", str(n_frames), "--local-ba",
+                "--trajectory", "--device", str(device)]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        pipe, res = cli.run_cli(argv)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        prefix = os.path.join(out, "synthetic_gtdepth_ba_localba_f%d" % n_frames)
+        outputs_exist = [os.path.exists(prefix + s) for s in
+                         ("_estimatedPoses.txt", "_mesh.off", "_results.json")]
+    emit({"phase": "pipeline", "frames": res["frames"],
+          "ate_rmse_m": res.get("ate_rmse"), "keyframes": res["keyframes"],
+          "keyframes_final": res["n_keyframes_final"],
+          "landmarks": res["n_map_points"], "wall_s": wall,
+          "frames_per_s": res["frames"] / wall, "launches": counts,
+          "phase_times": res["phase_times"], "outputs_exist": outputs_exist})
+    if not (res.get("ate_rmse") is not None and res["ate_rmse"] < 0.05):
+        raise AssertionError(f"pipeline ATE {res.get('ate_rmse')} >= 0.05 m")
+    if not all(outputs_exist):
+        raise AssertionError("pipeline output files missing")
+    return pipe, counts
+
+
+def phase_pipeline_shapes(pipe, results):
+    """Time the dense-BA kernels at the pipeline's own final global-BA shape
+    (every active keyframe, landmarks with >= 2 observations)."""
+    from bundleadjustment_tpu_torch.solvers.dense_ba import densify_problem_auto
+
+    m = pipe.map
+    snap = m.snapshot_problem(m.active_keyframes().tolist(), min_obs=2)
+    prob, _, O = densify_problem_auto(
+        snap.K4, snap.cam_idx, snap.pt_idx, snap.uv, snap.sigma2, snap.valid,
+        snap.cam_fixed, snap.points.shape[0], device=pipe.device)
+    res = compare_dense_kernels(prob, pipe._t(snap.extr), pipe._t(snap.points),
+                                "pipeline_final_ba")
+    emit({"phase": "kernel", "shape": "pipeline_final_ba",
+          "K": int(snap.extr.shape[0]), "L": int(snap.points.shape[0]), "O": O,
+          "n_obs": int(snap.valid.sum()), **res})
+    for name, r in res.items():
+        results[name]["shapes"]["pipeline_final_ba"] = r
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from bundleadjustment_tpu_torch.device import resolve_device
+
+    device = resolve_device("cuda")
+    phase_env()
+    phase_build()
+    rng = np.random.default_rng(0)
+    results = {}
+    phase_hamming(rng, device, results)
+    phase_dense_kernels(device, results)
+    phase_dense_solve(device)
+    pipe, counts = phase_pipeline(device)
+    missing = [k for k, n in counts.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the pipeline run launched no {missing}")
+    phase_pipeline_shapes(pipe, results)
+    emit({"kernels": [
+        {"name": name, "route": route, "source": src, "replaces": rep,
+         "launches": counts[name], "max_abs_err": results[name]["max_abs_err"],
+         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+        for name, (route, src, rep) in KERNELS.items()]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

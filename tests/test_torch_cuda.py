@@ -1,0 +1,129 @@
+"""Card-only tests of the port: each hand-written kernel against its plain
+PyTorch version on the same CUDA tensors. They skip without a card.
+
+This file imports no jax, so it runs on a machine with a card and without
+jax: `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
+
+Tolerances: kernel A bit-identical. Kernels B and C sum per-camera rows,
+S and b with float atomics, in an order that changes from run to run:
+cost rtol 1e-5; red, Vu, g_p, W, S and b rtol 2e-4 / atol 2e-3 relative to
+the max magnitude of each block (`torch_port_helpers.block_scale`); zv,
+vinv6 and Xt_new elementwise. Dense solve: cameras atol 5e-4, final cost
+rtol 1e-3.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bundleadjustment_tpu_torch.data.synthetic import make_synthetic_scene
+from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat
+from bundleadjustment_tpu_torch.ops import hamming as th
+from bundleadjustment_tpu_torch.solvers import dense_ba as td
+from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
+from bundleadjustment_tpu_torch.solvers.lm import LMConfig
+from torch_port_helpers import (  # noqa: F401
+    as_tensor,
+    assert_blocks_close,
+    assert_close,
+    cuda_device,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+def _descs(rng, m1, m2, case):
+    t = rng.integers(0, 2**32, (m2, 8), dtype=np.uint32)
+    q = t[rng.integers(0, m2, m1)].copy()
+    q[::2] ^= rng.integers(0, 2**32, q[::2].shape, dtype=np.uint32) & np.uint32(0x00110011)
+    valid = np.ones(m2, bool)
+    if case == "ties":
+        t[1::2] = t[0::2]  # every train row has an identical twin
+    elif case == "invalid":
+        valid = rng.random(m2) > 0.3
+    return q, t, valid
+
+
+def _scene(n_cams, n_pts, seed, pixel_noise, device, max_obs=16, copies=1):
+    """A dense problem; with copies > 1 every camera is repeated and each
+    observation goes to one of its camera's copies at random."""
+    sc = make_synthetic_scene(n_cams=n_cams, n_pts=n_pts, pixel_noise=pixel_noise,
+                              seed=seed)
+    sc.extr_init[1] = sc.extr_gt[1]
+    rng = np.random.default_rng(seed)
+    cam_idx = (sc.cam_idx + n_cams * rng.integers(0, copies, sc.cam_idx.shape)
+               ).astype(np.int32)
+    cf = np.zeros(n_cams * copies, bool)
+    cf[:2] = True
+    prob, _ = td.densify_problem(sc.K4, cam_idx, sc.pt_idx, sc.uv, sc.sigma2,
+                                 sc.valid, cf, n_pts, max_obs=max_obs, device=device)
+    cams = torch.from_numpy(np.tile(sc.extr_init, (copies, 1))).to(device)
+    pts = torch.from_numpy(sc.points_init).to(device)
+    return prob, cams, pts
+
+
+def test_hamming_kernel_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(0)
+    for B, case in ((1, "ties"), (4, "invalid")):
+        q, t, valid = _descs(rng, 500, 1000, case)
+        args = (as_tensor(q, cuda_device)[None],
+                as_tensor(np.stack([t] * B), cuda_device),
+                torch.from_numpy(np.stack([valid] * B)).to(cuda_device))
+        got = th.hamming_top2(*args)
+        ref = th.hamming_top2_plain(*args)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("copies", [1, 50])
+def test_dense_kernels_match_plain_on_card(cuda_device, copies):
+    """12 cameras, and 600 (12 x 50 copies): there kernel B's [K,27] table
+    exceeds its 48 KB of shared memory and the rows go to global atomics."""
+    prob, cams, pts = _scene(12, 3000, 7, 0.4, cuda_device, copies=copies)
+    cm = td._to_cm(prob)
+    K = cm.cam_fixed.shape[0]
+    R = aa_to_rotmat(cams[:, :3]).contiguous()
+    t = cams[:, 3:].contiguous()
+    Xt = pts.T.contiguous()
+    args = (cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t)
+    names = ("red", "Vu", "g_p", "W")
+    seed_k = dk.eval_assemble(*args, R, t, Xt)
+    seed_p = dk.eval_assemble_plain(*args, R, t, Xt)
+    assert_close(seed_k[0], seed_p[0], rtol=1e-5, atol=0)
+    for g, r, n in zip(seed_k[1:], seed_p[1:], names):
+        assert_blocks_close(n, g, r)
+
+    _, red, Vu, gp, W = seed_p
+    O, L = cm.cam_t.shape
+    W18 = W.reshape(18, O, L)
+    c_args = (torch.tensor(1e-3, device=cuda_device), Vu, gp, cm.pt_valid, W18,
+              cm.cam_t, K, red, cm.cam_fixed)
+    s_k = dk.schur_prepare_s(*c_args)
+    s_p = dk.schur_prepare_s_plain(*c_args)
+    assert_blocks_close("S", s_k[0], s_p[0])
+    assert_blocks_close("b", s_k[3], s_p[3])
+    for g, r in zip(s_k[1:3], s_p[1:3]):  # zv, vinv6
+        assert_close(g, r)
+
+    S, _, vinv6, b = s_p
+    dc = torch.linalg.solve(S.double(), b.double()).float().reshape(6, K).T
+    dc = torch.where(cm.cam_fixed[:, None], torch.zeros_like(dc), dc).contiguous()
+    R_new = (aa_to_rotmat(dc[:, :3]) @ R).contiguous()
+    t_new = (t + dc[:, 3:]).contiguous()
+    bs_args = (*args, R_new, t_new, dc, Xt, W18, vinv6, gp, cm.pt_valid)
+    bs_k = dk.eval_assemble_bs(*bs_args)
+    bs_p = dk.eval_assemble_bs_plain(*bs_args)
+    assert_close(bs_k[0], bs_p[0], rtol=1e-5, atol=0)
+    for g, r, n in zip(bs_k[1:5], bs_p[1:5], names):
+        assert_blocks_close(n, g, r)
+    assert_close(bs_k[5], bs_p[5])
+
+
+def test_dense_solve_kernels_match_plain_on_card(cuda_device):
+    prob, cams, pts = _scene(8, 200, 32, 0.3, cuda_device)
+    cfg = LMConfig(max_iters=15)
+    ck, _, ik = td.dense_ba_solve(prob, cams, pts, cfg)
+    cp, _, ip = td.dense_ba_solve(prob, cams, pts, cfg, ops=dk.PLAIN_OPS)
+    np.testing.assert_allclose(ck.cpu().numpy(), cp.cpu().numpy(), atol=5e-4)
+    np.testing.assert_allclose(float(ik["cost"]), float(ip["cost"]), rtol=1e-3)
+    assert float(ik["cost"]) < float(ik["cost0"])
