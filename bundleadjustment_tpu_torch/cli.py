@@ -5,12 +5,15 @@
         --output-path ./out --trajectory --device cuda
 
 Same flags as `python -m bundleadjustment_tpu.cli`, plus `--device` (default
-`cuda`; `cpu` runs the plain PyTorch versions of the kernels). Writes the
+`cuda`; `cpu` runs the plain PyTorch versions of the kernels).
+`--global-ba sharded` runs the landmark-sharded global BA over the default
+torch.distributed process group when the caller has initialised one
+(`parallel/multihost.py`), else as one shard. Writes the
 TUM trajectory (`--trajectory`), the COFF mesh and `<prefix>_results.json`.
 
 Flags of modes that are not ported raise NotImplementedError naming the
 ROADMAP item that ports them: --init-type standard, --estimation pnp /
-essential_or_homography, --global-ba windowed / sharded, --ba-solver pcg,
+essential_or_homography, --global-ba windowed, --ba-solver pcg,
 --depth-landmarks, --predetect, --reconstruction-error, --faces-type
 poisson, --display-pointcloud. --no-warmup, --matcher, --no-fused-tracking
 and --track-batch are accepted and change nothing (their --help says so):

@@ -1,43 +1,54 @@
-// Schur-S with the folded damped U block (kernel C).
+// Schur-S with the folded damped U block (kernel C), and its unfolded
+// partial (K5): one landmark loop, launched onto the damped U (C) or onto
+// zero (K5).
 //
 // Replaces the TPU kernel bundleadjustment_tpu/solvers/pallas_dense_eval.py:
-// fused_schur_prepare_s(..., red27=..., cam_fixed=...) / _schur_s_kernel with
-// fold_u=True, held to its float32 path (s_bf16=False).
+// fused_schur_prepare_s / _schur_s_kernel, held to its float32 path
+// (s_bf16=False):
+// - schur_prepare_s: fold_u=True (red27 and cam_fixed given), the
+//   single-device path;
+// - schur_qqt_partial: fold_u=False, the per-shard term of the sharded
+//   engine, which all-reduces it and adds the replicated U outside.
 //
-// Per landmark l (one thread):
+// Per landmark l (one thread), in point_prepare.cuh:
 //   V = Vu damped as diag * (1 + lam * clip(diag, 1e-6)), identity for
 //   invalid points; closed-form V^-1 -> vinv6; lower chol(V^-1) = C;
-//   zv = V^-1 g_p; for each valid observation slot o: G_o = W_o C (6x3),
-//   the rhs term W_o zv added to b at camera cam_o, and for every pair of
-//   its slots (o, o') the 6x6 block -G_o G_o'^T added to S at cameras
-//   (cam_o, cam_o').
-// Output S = U_damped_embed + 1e-8 I - Q Q^T and b = -(g_c - sum W zv), both
-// in (i, k) row order (row i*K + k), with U's fixed-camera blocks and g_c's
-// fixed-camera rows replaced by identity / zero, as the reference emits them.
-//
-// A first launch (schur_s_init) writes the damped U embed + 1e-8 I into
-// every entry of S and -g_c into b; the main launch (schur_s_accum) then
-// accumulates the landmark terms with float atomics. The QQ^T product is
-// computed here, in the kernel body, as in the reference; no library GEMM.
+//   zv = V^-1 g_p; then for each valid observation slot o: G_o = W_o C
+//   (6x3), the rhs term W_o zv added at camera cam_o, and for every pair of
+//   its slots (o, o') the 6x6 block G_o G_o'^T added at cameras
+//   (cam_o, cam_o'), times `sign`.
+// Both outputs are in (i, k) row order (row i*K + k).
+// Kernel C (sign -1) outputs S = U_damped_embed + 1e-8 I - Q Q^T and
+// b = -(g_c - sum W zv), with U's fixed-camera blocks and g_c's
+// fixed-camera rows replaced by identity / zero, as the reference emits
+// them: a first launch (schur_s_init) writes the damped U embed + 1e-8 I
+// into every entry of S and -g_c into b.
+// K5 (sign +1) outputs S_qqt = +Q Q^T and red6 [6][K] = sum W zv from zero
+// (memset). The reference returns K5's terms in (k, i) order; the order is
+// internal to the solve, which here folds U in (i, k) order for every route
+// (dense_kernels.damped_system). The QQ^T product is computed here, in the
+// kernel body, as in the reference; no library GEMM.
 //
 // What bounds it on H100: the atomic traffic into S. Each landmark with n
 // valid slots adds 36 n^2 entries (n(n+1)/2 pair blocks, mirrored); at
 // 100k landmarks x ~6 slots that is ~1e8 float atomics into a 6K x 6K
 // matrix (2.4 MB at K = 128, resident in the 50 MB L2). The arithmetic
-// (~110 flops per pair block) is small beside it.
+// (~110 flops per pair block) is small beside it. By bytes alone (W18 read
+// once, S written once) the bound at 128c/100k/O=8 is ~20 us.
 //
 // Design: one thread per landmark keeps V^-1, C and zv in registers,
 // recomputes G_o' from W for the inner slot instead of holding O x 18
 // values (any O works, no size gate), visits only pairs o <= o' and mirrors
 // the off-diagonal blocks, and skips slots whose W is all zero (invalid or
 // fixed-camera observations, which add exactly zero). Atomic order varies
-// from run to run, so S and b agree with a sequential sum to float32
+// from run to run, so S and the rhs agree with a sequential sum to float32
 // rounding of the order. The damped U and lam are read on the device: no
-// host sync. A later kernel can take a fold_u flag to emit the unfolded
-// +QQ^T partial of the sharded engine.
+// host sync.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "point_prepare.cuh"
 
 namespace {
 
@@ -82,105 +93,46 @@ __global__ void rhs_init(const float* __restrict__ red27,
   b[e] = cam_fixed[k] ? 0.f : -red27[k * 27 + 21 + i];
 }
 
-__device__ __forceinline__ bool load_g(const float* __restrict__ W18,
-                                       long long OL, long long s,
-                                       const float C[3][3], float G[6][3]) {
-  float W[18];
-  bool any = false;
-#pragma unroll
-  for (int c = 0; c < 18; ++c) {
-    W[c] = W18[c * OL + s];
-    any |= W[c] != 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-#pragma unroll
-    for (int m = 0; m < 3; ++m)
-      G[i][m] = W[i * 3] * C[0][m] + W[i * 3 + 1] * C[1][m] + W[i * 3 + 2] * C[2][m];
-  return any;
-}
-
+// Landmark terms, one thread per landmark: S += sign * G G'^T and
+// rhs += W zv, both in (i, k) row order, onto what the caller put there.
 __global__ void schur_s_accum(const float* __restrict__ lam_ptr,
                               const float* __restrict__ Vu,
                               const float* __restrict__ g_p,
                               const uint8_t* __restrict__ pt_valid,
                               const float* __restrict__ W18,
                               const int* __restrict__ cam_t, int O, int L, int K,
-                              float* __restrict__ S, float* __restrict__ b,
+                              float sign, float* __restrict__ S,
+                              float* __restrict__ rhs,
                               float* __restrict__ zv_out,
                               float* __restrict__ vinv_out) {
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= L) return;
-  const float lam = *lam_ptr;
-  float v00 = Vu[l], v01 = Vu[L + l], v02 = Vu[2 * L + l];
-  float v11 = Vu[3 * L + l], v12 = Vu[4 * L + l], v22 = Vu[5 * L + l];
-  v00 = v00 + lam * fmaxf(v00, 1e-6f);
-  v11 = v11 + lam * fmaxf(v11, 1e-6f);
-  v22 = v22 + lam * fmaxf(v22, 1e-6f);
-  if (!pt_valid[l]) {
-    v00 = v11 = v22 = 1.f;
-    v01 = v02 = v12 = 0.f;
-  }
-  const float A = v11 * v22 - v12 * v12;
-  const float B = v02 * v12 - v01 * v22;
-  const float Cc = v01 * v12 - v02 * v11;
-  float det = v00 * A + v01 * B + v02 * Cc;
-  det = fabsf(det) < 1e-20f ? 1e-20f : det;
-  const float inv_det = 1.f / det;
-  const float D = v00 * v22 - v02 * v02;
-  const float E = v01 * v02 - v00 * v12;
-  const float F = v00 * v11 - v01 * v01;
-  const float i00 = A * inv_det, i01 = B * inv_det, i02 = Cc * inv_det;
-  const float i11 = D * inv_det, i12 = E * inv_det, i22 = F * inv_det;
-  vinv_out[l] = i00;
-  vinv_out[L + l] = i01;
-  vinv_out[2 * L + l] = i02;
-  vinv_out[3 * L + l] = i11;
-  vinv_out[4 * L + l] = i12;
-  vinv_out[5 * L + l] = i22;
-
-  const float l00 = sqrtf(fmaxf(i00, 1e-20f));
-  const float l10 = i01 / l00;
-  const float l20 = i02 / l00;
-  const float l11 = sqrtf(fmaxf(i11 - l10 * l10, 1e-20f));
-  const float l21 = (i12 - l20 * l10) / l11;
-  const float l22 = sqrtf(fmaxf(i22 - l20 * l20 - l21 * l21, 1e-20f));
-  const float C[3][3] = {{l00, 0.f, 0.f}, {l10, l11, 0.f}, {l20, l21, l22}};
-
-  const float gp0 = g_p[l], gp1 = g_p[L + l], gp2 = g_p[2 * L + l];
-  const float zv[3] = {i00 * gp0 + i01 * gp1 + i02 * gp2,
-                       i01 * gp0 + i11 * gp1 + i12 * gp2,
-                       i02 * gp0 + i12 * gp1 + i22 * gp2};
-  zv_out[l] = zv[0];
-  zv_out[L + l] = zv[1];
-  zv_out[2 * L + l] = zv[2];
-
+  const PointPrep p = point_prepare(*lam_ptr, Vu, g_p, pt_valid, l, L, zv_out,
+                                    vinv_out);
   const long long OL = (long long)O * L;
   const long long n6 = 6LL * K;
   for (int o = 0; o < O; ++o) {
     const long long s = (long long)o * L + l;
-    float G[6][3];
-    if (!load_g(W18, OL, s, C, G)) continue;
+    float W[18], G[6][3];
+    if (!load_w_g(W18, OL, s, p.C, W, G)) continue;
     const int cam = cam_t[s];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      const float wz = W18[(i * 3) * OL + s] * zv[0] +
-                       W18[(i * 3 + 1) * OL + s] * zv[1] +
-                       W18[(i * 3 + 2) * OL + s] * zv[2];
-      atomicAdd(&b[i * K + cam], wz);
-    }
+    for (int i = 0; i < 6; ++i)
+      atomicAdd(&rhs[(long long)i * K + cam], w_zv(W, p.zv, i));
     for (int o2 = o; o2 < O; ++o2) {
       const long long s2 = (long long)o2 * L + l;
-      float G2[6][3];
-      if (!load_g(W18, OL, s2, C, G2)) continue;
+      float W2[18], G2[6][3];
+      if (!load_w_g(W18, OL, s2, p.C, W2, G2)) continue;
       const int cam2 = cam_t[s2];
 #pragma unroll
       for (int i = 0; i < 6; ++i) {
+        const long long r = (long long)i * K + cam;
 #pragma unroll
         for (int i2 = 0; i2 < 6; ++i2) {
+          const long long r2 = (long long)i2 * K + cam2;
           const float q = G[i][0] * G2[i2][0] + G[i][1] * G2[i2][1] + G[i][2] * G2[i2][2];
-          atomicAdd(&S[(i * K + cam) * n6 + i2 * K + cam2], -q);
-          if (o2 != o) atomicAdd(&S[(i2 * K + cam2) * n6 + i * K + cam], -q);
+          atomicAdd(&S[r * n6 + r2], sign * q);
+          if (o2 != o) atomicAdd(&S[r2 * n6 + r], sign * q);
         }
       }
     }
@@ -208,7 +160,24 @@ extern "C" int schur_prepare_s(const void* lam, const void* red27,
     schur_s_accum<<<(L + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         (const float*)lam, (const float*)Vu, (const float*)g_p,
         (const uint8_t*)pt_valid, (const float*)W18, (const int*)cam_t, O, L, K,
-        (float*)S, (float*)b, (float*)zv, (float*)vinv6);
+        -1.f, (float*)S, (float*)b, (float*)zv, (float*)vinv6);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int schur_qqt_partial(const void* lam, const void* Vu, const void* g_p,
+                                 const void* pt_valid, const void* W18,
+                                 const void* cam_t, int O, int L, int K, void* S,
+                                 void* red6, void* zv, void* vinv6, void* stream) {
+  if (K <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaMemsetAsync(S, 0, sizeof(float) * 36LL * K * K, s);
+  cudaMemsetAsync(red6, 0, sizeof(float) * 6LL * K, s);
+  if (L > 0) {
+    schur_s_accum<<<(L + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        (const float*)lam, (const float*)Vu, (const float*)g_p,
+        (const uint8_t*)pt_valid, (const float*)W18, (const int*)cam_t, O, L, K,
+        1.f, (float*)S, (float*)red6, (float*)zv, (float*)vinv6);
   }
   return (int)cudaGetLastError();
 }

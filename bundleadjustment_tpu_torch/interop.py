@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from bundleadjustment_tpu_torch.device import resolve_device
 from bundleadjustment_tpu_torch.ops.features import FeatureConfig, Features
 from bundleadjustment_tpu_torch.solvers.dense_ba import _CM, DenseBAProblem
 from bundleadjustment_tpu_torch.solvers.lm import LMConfig, MotionOnlyConfig
@@ -43,8 +44,10 @@ def to_tensor(a, device, int64=False):
     return t.to(device)
 
 
-def from_reference(obj, device="cpu"):
-    """Convert a JAX-package NamedTuple to the port's counterpart."""
+def from_reference(obj, device="cuda"):
+    """Convert a JAX-package NamedTuple to the port's counterpart; tensors
+    go to `device` (the card unless the caller asks for the CPU; configs
+    carry no tensors and ignore it)."""
     name = type(obj).__name__
     fields = obj._asdict()
     if name in _CONFIGS:
@@ -53,6 +56,7 @@ def from_reference(obj, device="cpu"):
         return cls(**{k: v for k, v in fields.items() if k in names})
     if name in _TENSORS:
         cls = _TENSORS[name]
+        device = resolve_device(device)
         wide = _INT64_FIELDS.get(name, ())
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: to_tensor(v, device, k in wide)

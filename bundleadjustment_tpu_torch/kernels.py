@@ -55,12 +55,21 @@ SIGNATURES = {
         # lam, red27, cam_fixed, Vu, g_p, pt_valid, W18, cam_t, O, L, K,
         # S, b, zv, vinv6, stream
         "schur_prepare_s": [P] * 8 + [I32] * 3 + [P] * 5,
+        # lam, Vu, g_p, pt_valid, W18, cam_t, O, L, K, S, red6, zv, vinv6,
+        # stream
+        "schur_qqt_partial": [P] * 6 + [I32] * 3 + [P] * 5,
+    },
+    "schur_prepare": {
+        # lam, Vu, g_p, pt_valid, W18, cam_t, O, L, K, G, zv, vinv6, red6,
+        # stream
+        "schur_prepare": [P] * 6 + [I32] * 3 + [P] * 5,
     },
 }
 
 # launches per kernel since the last reset (see module docstring)
 LAUNCHES = {"hamming_top2": 0, "dense_eval_assemble": 0,
-            "dense_eval_assemble_bs": 0, "schur_prepare_s": 0}
+            "dense_eval_assemble_bs": 0, "schur_prepare_s": 0,
+            "schur_qqt_partial": 0, "schur_prepare": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -91,13 +100,19 @@ def _so_path(name):
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def _newest_source(src):
+    """Latest mtime of a .cu file and the shared headers it may include."""
+    heads = [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return max(os.path.getmtime(f) for f in [src, *heads])
+
+
 def build(name, force=False):
     """Compile csrc/<name>.cu to _build/lib<name>.so if missing or stale.
     Returns the seconds spent compiling (0.0 when up to date)."""
     src = os.path.join(CSRC, f"{name}.cu")
     out = _so_path(name)
     if (not force and os.path.exists(out)
-            and os.path.getmtime(out) >= os.path.getmtime(src)):
+            and os.path.getmtime(out) >= _newest_source(src)):
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = out + f".{os.getpid()}.tmp"
@@ -111,8 +126,13 @@ def build(name, force=False):
 
 
 def build_all(force=False):
-    """Build every kernel library; returns {name: seconds}."""
-    return {name: build(name, force=force) for name in SIGNATURES}
+    """Build every kernel library, one nvcc process per source, all started
+    together; returns {name: seconds}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(SIGNATURES)) as pool:
+        futs = {name: pool.submit(build, name, force) for name in SIGNATURES}
+        return {name: f.result() for name, f in futs.items()}
 
 
 def lib(name):

@@ -4,14 +4,15 @@ Port of `bundleadjustment_tpu/pipeline/driver.py`, default path only:
 gtdepth initialization, `estimation="ba"` tracking with the guided
 local-map second pass, keyframe culling / triangulation / covisibility /
 neighbourhood search and fusion, local or global BA (`global_ba_mode=
-"single"`), and `finalize` (the 3 x 100 global BA plus two rounds of
-trajectory refinement), with the native C++ map store (`SceneMap`, copied
+"single"`, or `"sharded"` over torch.distributed), and `finalize` (the
+3 x 100 global BA plus two rounds of trajectory refinement), with the native C++ map store (`SceneMap`, copied
 from the JAX package) holding the observation graph.
 
 Device work (detection, matching, motion-only BA, triangulation, BA) runs on
 `device`; host bookkeeping stays in numpy. Every Hamming top-2 search
 (previous-frame match, guided local-map match, neighbour search) goes through
-kernel A; dense BA goes through kernels B and C.
+kernel A; dense BA goes through kernels B and C (K5 or kernel D in the
+sharded global BA and for more than 64 observations per landmark).
 
 Differences from the JAX driver, none of which changes a result:
 
@@ -120,6 +121,15 @@ class TrackRecord:
     assoc_kp: np.ndarray | None = None
 
 
+def _pow2(n, minimum):
+    """Smallest power of two times `minimum` that is >= n (the reference's
+    `_pow2`, kept here so the sharded global BA buckets max_obs alike)."""
+    cap = minimum
+    while cap < n:
+        cap *= 2
+    return cap
+
+
 def _not_ported(what, item):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1: {item})")
 
@@ -130,9 +140,9 @@ def check_config(cfg: PipelineConfig):
         _not_ported(f"init_type={cfg.init_type!r}", "standard init / epipolar.py")
     if cfg.estimation != "ba":
         _not_ported(f"estimation={cfg.estimation!r}", "PnP and E/H tracking")
-    if cfg.global_ba_mode != "single":
-        _not_ported(f"global_ba_mode={cfg.global_ba_mode!r}",
-                    "windowed and sharded modes over parallel/*")
+    if cfg.global_ba_mode == "windowed":
+        _not_ported("global_ba_mode='windowed'",
+                    "the windowed mode over parallel/windows.py, posegraph.py")
     if cfg.ba_solver != "dense":
         _not_ported(f"ba_solver={cfg.ba_solver!r}", "PCG")
     if cfg.depth_landmarks:
@@ -144,7 +154,7 @@ def _feat_capacity(config: PipelineConfig):
 
 
 class BundleAdjustmentPipeline:
-    def __init__(self, config: PipelineConfig, K4, width, height, device="cpu"):
+    def __init__(self, config: PipelineConfig, K4, width, height, device="cuda"):
         check_config(config)
         self.cfg = config
         self.device = resolve_device(device)
@@ -288,19 +298,61 @@ class BundleAdjustmentPipeline:
                 cams, pts, info = dense_ba_solve(dense, extr, points, lm_cfg)
             else:
                 cams, pts, info = ba_solve(prob, extr, points, lm_cfg)
-            # post-solve chi2 pruning in the flat layout, then one fetch
-            new_valid = prune_outliers_cams(prob, cams, pts)
-            self.map.writeback(snap, cams.cpu().numpy(), pts.cpu().numpy(),
-                               new_valid.cpu().numpy())
+            self._prune_writeback(snap, prob, cams, pts)
             return info
 
+    def _prune_writeback(self, snap, prob, cams, pts):
+        """Post-solve chi2 pruning in the flat layout, then one fetch and the
+        map writeback."""
+        new_valid = prune_outliers_cams(prob, cams, pts)
+        self.map.writeback(snap, cams.cpu().numpy(), pts.cpu().numpy(),
+                           new_valid.cpu().numpy())
+
     def global_ba(self, max_iters=None):
-        """Global BA over all active keyframes (first one fixed)."""
+        """Global BA over all active keyframes (first one fixed), routed by
+        cfg.global_ba_mode: "single" (`_solve_ba`) or "sharded"
+        (`_solve_ba_sharded`)."""
         kfs = self.map.active_keyframes().tolist()
         if len(kfs) < 2:
             return None
         snap = self.map.snapshot_problem(kfs, min_obs=2)
+        if self.cfg.global_ba_mode == "sharded":
+            return self._solve_ba_sharded(snap, max_iters or self.cfg.kf_ba_iters)
         return self._solve_ba(snap, max_iters or self.cfg.kf_ba_iters)
+
+    def _solve_ba_sharded(self, snap, max_iters):
+        """Landmark-sharded dense solve (parallel/sharded_dense_ba.py) over
+        the default process group when one is initialised, else one shard:
+        the per-shard Schur partials are all-reduced, everything landmark-
+        side stays on its rank. Every rank writes back the same result."""
+        from bundleadjustment_tpu_torch.parallel.multihost import default_group
+        from bundleadjustment_tpu_torch.parallel.sharded_dense_ba import (
+            gather_points,
+            shard_dense_problem,
+            sharded_dense_ba_solve,
+        )
+
+        with self.timers.phase("bundle_adjust"):
+            group = default_group()
+            n_shards = 1 if group is None else torch.distributed.get_world_size(group)
+            rank = 0 if group is None else torch.distributed.get_rank(group)
+            # max_obs: never drop a constraint: the true per-landmark maximum
+            # rounded up to a power of two (the reference's bucket, so that
+            # densify trims O to the same width)
+            counts = np.bincount(np.asarray(snap.pt_idx)[np.asarray(snap.valid)],
+                                 minlength=snap.points.shape[0])
+            max_obs = _pow2(max(int(counts.max()) if counts.size else 1, 1),
+                            self.cfg.ba_max_obs_per_pt)
+            prob, pts_sh, shard_of, local_of = shard_dense_problem(
+                snap.K4, snap.cam_idx, snap.pt_idx, snap.uv, snap.sigma2,
+                snap.valid, snap.cam_fixed, snap.points, n_shards, rank,
+                max_obs=max_obs, device=self.device)
+            cfg = LMConfig(max_iters=max_iters, solver=self.cfg.ba_solver)
+            cams, pts_sh, info = sharded_dense_ba_solve(
+                prob, self._t(snap.extr), pts_sh, cfg, group)
+            pts = self._t(gather_points(pts_sh, shard_of, local_of, group))
+            self._prune_writeback(snap, self._flat_problem(snap), cams, pts)
+            return info
 
     def local_ba(self, center_kf, max_iters=None):
         """Window = center + best covisible; observers of window points enter

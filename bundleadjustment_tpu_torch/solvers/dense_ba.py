@@ -7,8 +7,16 @@ their plain versions take exactly the arrays the Pallas kernels take.
 
 One LM iteration (`dense_ba_solve`):
 
-1. kernel C (`schur_prepare_s`): damped point blocks, V^-1, chol(V^-1), the
-   camera rhs and the full damped Schur matrix S in (i, k) row order;
+1. the Schur step, by the reference's three routes (`solve_fused`):
+   (a) one device, O <= 64: kernel C (`schur_prepare_s`): damped point
+   blocks, V^-1, chol(V^-1), the camera rhs and the full damped Schur
+   matrix S in (i, k) row order;
+   (b) sharded (`reduce` given), O <= 64: K5 (`schur_qqt_partial`), the
+   +Q Q^T partial and rhs rows, all-reduced, then the damped U folded in
+   (`dense_kernels.damped_system`, (i, k) order as (a); the reference
+   folds it in (k, i) order, which changes nothing but the rounding);
+   (c) O > 64, either mode: kernel D (`schur_prepare`), Pf by `index_add_`
+   and Q Q^T by a plain matrix product, all-reduced, then U as in (b);
 2. `cholesky_ex` + `cholesky_solve` on S (outside any kernel, as the JAX
    package solves it with XLA); a non-PD S gives a NaN step;
 3. kernel B with back-substitution (`eval_assemble_bs`): the trial landmarks
@@ -28,6 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from bundleadjustment_tpu_torch.device import resolve_device
 from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat, rotmat_to_aa
 from bundleadjustment_tpu_torch.solvers.lm import (
     CHEIRALITY_PENALTY,
@@ -96,12 +105,13 @@ def densify_numpy(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
 
 def to_problem(arrays, device):
     """numpy dict (from `densify_numpy`) -> DenseBAProblem on `device`."""
+    device = resolve_device(device)
     return DenseBAProblem(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                              for k, v in arrays.items()})
 
 
 def densify_problem(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
-                    n_points, max_obs=16, device="cpu"):
+                    n_points, max_obs=16, device="cuda"):
     """`densify_numpy` returning tensors: (DenseBAProblem, n_dropped)."""
     arrays, dropped = densify_numpy(K4, cam_idx, pt_idx, uv, sigma2, valid,
                                     cam_fixed, n_points, max_obs)
@@ -109,7 +119,7 @@ def densify_problem(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
 
 
 def densify_problem_auto(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
-                         n_points, max_obs=16, max_obs_cap=512, device="cpu"):
+                         n_points, max_obs=16, max_obs_cap=512, device="cuda"):
     """`densify_problem` with max_obs doubled (up to max_obs_cap) until no
     observation is dropped. Returns (DenseBAProblem, n_dropped, O)."""
     while True:
@@ -239,28 +249,80 @@ def _assemble_cm(cam_t, n_cams, r, Jc, Jp):
 # ---------------------------------------------------------------------------
 
 
+# The largest O that the Schur-S kernel routes (C single-device, K5
+# sharded) take; above it the reference's route is its prepare kernel (K6,
+# here kernel D) plus a plain Pf / Q Q^T product. The reference's gate
+# (`pallas_dense_eval.py:773-779`) also rejects K > 128 and shapes whose S
+# and landmark tile overflow VMEM: that is TPU mechanics (S must fit the
+# core's VMEM), and the port's kernel C has no K limit (S lives in device
+# memory and L2), so only the O term is kept.
+S_KERNEL_MAX_O = 64
+
+
+def schur_route(O):
+    """"s" (the Schur-S kernel: C, or K5 when sharded) or "prepare" (kernel
+    D + Pf + Q Q^T) for a problem with O observation slots per landmark."""
+    return "s" if O <= S_KERNEL_MAX_O else "prepare"
+
+
+def _solve_unfolded(dk, route, lam, Vu, g_p, W18, cm, red, reduce):
+    """Branches (b) and (c) of the reference's `solve_fused`: the +Q Q^T
+    partial and red6 (K5, or kernel D + Pf + Q Q^T), all-reduced, then the
+    damped U and 1e-8 I folded in and the Cholesky solve, in (i, k) order
+    as route (a). Returns (dc [K, 6], vinv6)."""
+    from bundleadjustment_tpu_torch.solvers.dense_kernels import (
+        damped_system,
+        pf_index_add,
+        qqt,
+    )
+
+    K = cm.cam_fixed.shape[0]
+    if route == "s":
+        S_qqt, _zv, vinv6, red6 = dk.schur_qqt_partial(
+            lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K)
+    else:
+        G, _zv, vinv6, red6 = dk.schur_prepare(lam, Vu, g_p, cm.pt_valid, W18,
+                                               cm.cam_t, K)
+        S_qqt = qqt(pf_index_add(G, cm.cam_t, K), K)
+    S, b = damped_system(lam, red, cm.cam_fixed, reduce(S_qqt), reduce(red6))
+    return cholesky_solve_nan(S, b).reshape(6, K).T, vinv6
+
+
 def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
-                   ops=None):
+                   ops=None, reduce=None):
     """LM / exact-Schur solve in the dense landmark-major layout.
 
     cam_rt6 [K, 6], points [L, 3] on the problem's device. Returns
     (cam_rt6', points', info) with info's values as device tensors. `ops`
     (default `dense_kernels.KERNEL_OPS`, which dispatch on the device) picks
-    the implementations of kernels B and C.
+    the implementations of the kernels.
+
+    `reduce` is the cross-shard reduction hook (the reference's `psum`): a
+    function that sums a tensor over every landmark shard and returns it.
+    None means one device: the Schur step is kernel C with the folded U
+    (O <= 64). Given (the sharded engine, even with one shard), the Schur
+    step all-reduces the unfolded partial: K5 for O <= 64. Above O = 64
+    both take kernel D + Pf + Q Q^T (`schur_route`). The cost and the
+    per-camera rows are reduced after every eval.
     """
     from bundleadjustment_tpu_torch.solvers import dense_kernels
 
     dk = dense_kernels.KERNEL_OPS if ops is None else ops
     check_solver(config)
+    single = reduce is None
+    if single:
+        reduce = lambda x: x  # noqa: E731
     cm = _to_cm(prob)
     K = cm.cam_fixed.shape[0]
     O, L = cm.cam_t.shape
+    route = schur_route(O)
     R = aa_to_rotmat(cam_rt6[:, :3]).contiguous()
     t = cam_rt6[:, 3:].contiguous()
     Xt = points.T.contiguous()
     args = (cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t)
     cost, red, Vu, g_p, W = dk.eval_assemble(*args, R, t, Xt,
                                              robust=config.robust)
+    cost, red = reduce(cost), reduce(red)
     cost0 = cost
     dev, dt_ = cost.device, cost.dtype
     lam = torch.tensor(config.lam0, dtype=dt_, device=dev)
@@ -271,16 +333,21 @@ def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
     hist = []
     for _ in range(config.max_iters):
         W18 = W.reshape(18, O, L)
-        S, _zv, vinv6, b = dk.schur_prepare_s(
-            lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K, red, cm.cam_fixed)
-        # S and b are in (i, k) order: the solution comes back as [6, K]
-        dc = cholesky_solve_nan(S, b).reshape(6, K).T
+        if single and route == "s":
+            S, _zv, vinv6, b = dk.schur_prepare_s(
+                lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K, red, cm.cam_fixed)
+            # S and b are in (i, k) order: the solution comes back as [6, K]
+            dc = cholesky_solve_nan(S, b).reshape(6, K).T
+        else:
+            dc, vinv6 = _solve_unfolded(dk, route, lam, Vu, g_p, W18, cm, red,
+                                        reduce)
         dc = torch.where(fixed, zero, dc).contiguous()
         R_new = (aa_to_rotmat(dc[:, :3]) @ R).contiguous()
         t_new = (t + dc[:, 3:]).contiguous()
         new_cost, red_n, Vu_n, gp_n, W_n, Xt_n = dk.eval_assemble_bs(
             *args, R_new, t_new, dc, Xt, W18, vinv6, g_p, cm.pt_valid,
             robust=config.robust)
+        new_cost, red_n = reduce(new_cost), reduce(red_n)
         accept = (new_cost < cost) & torch.isfinite(new_cost)
         take = accept & ~done
         rel = (cost - new_cost) / torch.clamp(cost, min=1e-20)

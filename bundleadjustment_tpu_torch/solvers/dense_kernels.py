@@ -1,5 +1,6 @@
-"""Dense-BA kernels B (eval + assembly, optional back-substitution) and C
-(Schur-S with the folded damped U), with their plain PyTorch versions.
+"""Dense-BA kernels B (eval + assembly, optional back-substitution), C
+(Schur-S with the folded damped U), K5 (C's unfolded per-shard partial) and
+D (Schur prepare), with their plain PyTorch versions.
 
 Port of `bundleadjustment_tpu/solvers/pallas_dense_eval.py`:
 
@@ -8,7 +9,13 @@ Port of `bundleadjustment_tpu/solvers/pallas_dense_eval.py`:
   back-substitution flag);
 - `schur_prepare_s` replaces `fused_schur_prepare_s(..., red27=...,
   cam_fixed=...)`, the single-device `fold_u=True` path, in float32
-  (`csrc/schur_s.cu`).
+  (`csrc/schur_s.cu`);
+- `schur_qqt_partial` replaces `fused_schur_prepare_s(...)` without red27,
+  the sharded engine's `fold_u=False` path (K5; kernel C's landmark loop
+  launched onto zero, in C's (i, k) order);
+- `schur_prepare` replaces `fused_schur_prepare` (K6; `csrc/
+  schur_prepare.cu`), whose G feeds the outside `pf_index_add` / `qqt`
+  product for large O.
 
 Each wrapper dispatches on the device of its tensors: CPU tensors run the
 plain version below it, CUDA tensors launch the kernel or raise. Inputs and
@@ -18,7 +25,7 @@ same arrays to both packages.
 Tolerances against the plain versions (and against the JAX kernels): the
 kernels sum per-camera rows and S entries with float atomics, in an order
 that changes from run to run; cost agrees to rtol 1e-5, the block outputs to
-rtol 2e-4 / atol 2e-3 (S and b scaled by max|S|).
+rtol 2e-4 / atol 2e-3 relative to each block's own magnitude.
 """
 
 from __future__ import annotations
@@ -187,23 +194,71 @@ def _point_prepare_plain(lam, Vu, g_p, pt_valid):
     return vinv6, C, zv
 
 
-def damped_u_embed(lam, red27, cam_fixed):
-    """The block-diagonal damped U (identity blocks for fixed cameras) in
-    (i, k) row order, plus 1e-8 I: [6K, 6K]."""
+def damped_system(lam, red27, cam_fixed, S_qqt, red6):
+    """The damped Schur system (S, b) of one LM iteration from the undamped
+    camera rows red27 [K,27] and the point terms S_qqt = +Q Q^T [6K,6K] and
+    red6 = sum W zv [6,K]: S = the block-diagonal damped U (identity blocks
+    for fixed cameras, the reference's `_damp_U_cm`) + 1e-8 I - S_qqt and
+    b = -(g_c - red6) (g_c zero for fixed cameras), all in (i, k) order (row
+    i*K + k), so the solution comes back as [6, K]."""
     from bundleadjustment_tpu_torch.solvers.dense_ba import SYM6_IDX
 
     K = red27.shape[0]
-    idx6 = torch.from_numpy(SYM6_IDX).to(red27.device)
-    U = red27[:, idx6]  # [K, 6, 6]
+    U = red27[:, torch.from_numpy(SYM6_IDX).to(red27.device)]  # [K, 6, 6]
     eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
     dU = torch.clamp(torch.diagonal(U, dim1=-2, dim2=-1), min=1e-6)
     U = U + (lam * dU)[..., None] * eye6
     U = torch.where(cam_fixed[:, None, None], eye6, U)
+    g_c = torch.where(cam_fixed[:, None], torch.zeros_like(red27[:, 21:]),
+                      red27[:, 21:])
     E = torch.zeros((6, K, 6, K), dtype=U.dtype, device=U.device)
     ar = torch.arange(K, device=U.device)
     E[:, ar, :, ar] = U
-    E = E.reshape(6 * K, 6 * K)
-    return E + 1e-8 * torch.eye(6 * K, dtype=U.dtype, device=U.device)
+    S = (E.reshape(6 * K, 6 * K)
+         + 1e-8 * torch.eye(6 * K, dtype=U.dtype, device=U.device) - S_qqt)
+    return S, -(g_c.T - red6).reshape(-1)
+
+
+def schur_prepare_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):
+    """Plain version of kernel D. Returns (G [18,O,L] = W chol(V^-1) in rows
+    i*3 + m, zv [3,L], vinv6 [6,L], red6 [6,K] = sum W zv per camera)."""
+    vinv6, C, zv = _point_prepare_plain(lam, Vu, g_p, pt_valid)
+    G = torch.stack([sum(W18[i * 3 + j] * C[j][m][None, :] for j in range(3))
+                     for i in range(6) for m in range(3)])  # [18, O, L]
+    wz = torch.stack([sum(W18[i * 3 + j] * zv[j][None, :] for j in range(3))
+                      for i in range(6)])  # [6, O, L]
+    # index_add_ along dim 0, then [6, K]: along dim 1 it is slower on the
+    # card and sums in another order
+    red6 = torch.zeros((n_cams, 6), dtype=wz.dtype, device=wz.device).index_add_(
+        0, cam_t.reshape(-1).long(), wz.reshape(6, -1).T).T.contiguous()
+    return G, zv, vinv6, red6
+
+
+def pf_index_add(G, cam_t, n_cams):
+    """Pf [L*K, 18]: Pf[l*K + k] = sum_o [cam_o == k] G[:, o, l] (one
+    index_add_; the reference's one-hot Pf contraction)."""
+    L = cam_t.shape[1]
+    slot = (torch.arange(L, device=cam_t.device)[None, :] * n_cams
+            + cam_t.long()).reshape(-1)
+    return torch.zeros((L * n_cams, 18), dtype=G.dtype,
+                       device=G.device).index_add_(0, slot, G.reshape(18, -1).T)
+
+
+def qqt(Pf, n_cams):
+    """Q Q^T [6K, 6K] from Pf [L*K, 18] (columns i*3 + m), with Q's rows in
+    (i, k) order (row i*K + k); a plain matrix product."""
+    K = n_cams
+    L = Pf.shape[0] // K
+    Q = Pf.reshape(L, K, 6, 3).permute(2, 1, 0, 3).reshape(6 * K, 3 * L)
+    return Q @ Q.T
+
+
+def schur_qqt_partial_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):
+    """Plain version of K5. Returns (S_qqt [6K,6K] = +Q Q^T, zv [3,L],
+    vinv6 [6,L], red6 [6,K]), in (i, k) order."""
+    G, zv, vinv6, red6 = schur_prepare_plain(lam, Vu, g_p, pt_valid, W18,
+                                             cam_t, n_cams)
+    return qqt(pf_index_add(G, cam_t, n_cams), n_cams), zv, vinv6, red6
 
 
 def schur_prepare_s_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, red27,
@@ -211,25 +266,22 @@ def schur_prepare_s_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, red27,
     """Plain version of kernel C. Returns (S [6K,6K], zv [3,L], vinv6 [6,L],
     b [6K]), S = U_damped_embed + 1e-8 I - Q Q^T and b = -(g_c - sum W zv),
     both in (i, k) order (row i*K + k)."""
-    O, L = cam_t.shape
-    K = n_cams
-    vinv6, C, zv = _point_prepare_plain(lam, Vu, g_p, pt_valid)
-    G = torch.stack([sum(W18[i * 3 + j] * C[j][m][None, :] for j in range(3))
-                     for i in range(6) for m in range(3)])  # [18, O, L]
-    wz = torch.stack([sum(W18[i * 3 + j] * zv[j][None, :] for j in range(3))
-                      for i in range(6)])  # [6, O, L]
-    cam = cam_t.long()
-    red6 = torch.zeros((K, 6), dtype=wz.dtype, device=wz.device).index_add_(
-        0, cam.reshape(-1), wz.reshape(6, -1).T)
-    g_c = torch.where(cam_fixed[:, None], torch.zeros_like(red6), red27[:, 21:])
-    b = -(g_c - red6).T.reshape(-1)
-    # Pf[l, k, i, m] = sum_o [cam_o == k] G[i, m, o, l]; Q rows in (i, k) order
-    slot = (torch.arange(L, device=cam.device)[None, :] * K + cam).reshape(-1)
-    Pf = torch.zeros((L * K, 18), dtype=G.dtype, device=G.device).index_add_(
-        0, slot, G.reshape(18, -1).T)
-    Q = Pf.reshape(L, K, 6, 3).permute(2, 1, 0, 3).reshape(6 * K, 3 * L)
-    S = damped_u_embed(lam, red27, cam_fixed) - Q @ Q.T
+    S_qqt, zv, vinv6, red6 = schur_qqt_partial_plain(lam, Vu, g_p, pt_valid,
+                                                     W18, cam_t, n_cams)
+    S, b = damped_system(lam, red27, cam_fixed, S_qqt, red6)
     return S, zv, vinv6, b
+
+
+def _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t):
+    O, L = cam_t.shape
+    f32 = torch.float32
+    kernels.check_cuda("lam", lam, f32, ())
+    kernels.check_cuda("Vu", Vu, f32, (6, L))
+    kernels.check_cuda("g_p", g_p, f32, (3, L))
+    kernels.check_cuda("pt_valid", pt_valid, torch.bool, (L,))
+    kernels.check_cuda("W18", W18, f32, (18, O, L))
+    kernels.check_cuda("cam_t", cam_t, torch.int32, (O, L))
+    return O, L
 
 
 def schur_prepare_s(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, red27,
@@ -243,18 +295,12 @@ def schur_prepare_s(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, red27,
     if not cam_t.is_cuda:
         return schur_prepare_s_plain(lam, Vu, g_p, pt_valid, W18, cam_t,
                                      n_cams, red27, cam_fixed)
-    O, L = cam_t.shape
+    O, L = _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t)
     K = n_cams
     dev = cam_t.device
     f32 = torch.float32
-    kernels.check_cuda("lam", lam, f32, ())
     kernels.check_cuda("red27", red27, f32, (K, N_RED))
     kernels.check_cuda("cam_fixed", cam_fixed, torch.bool, (K,))
-    kernels.check_cuda("Vu", Vu, f32, (6, L))
-    kernels.check_cuda("g_p", g_p, f32, (3, L))
-    kernels.check_cuda("pt_valid", pt_valid, torch.bool, (L,))
-    kernels.check_cuda("W18", W18, f32, (18, O, L))
-    kernels.check_cuda("cam_t", cam_t, torch.int32, (O, L))
     S = torch.empty((6 * K, 6 * K), dtype=f32, device=dev)
     b = torch.empty((6 * K,), dtype=f32, device=dev)
     zv = torch.empty((3, L), dtype=f32, device=dev)
@@ -269,10 +315,66 @@ def schur_prepare_s(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, red27,
     return S, zv, vinv6, b
 
 
-# The three per-iteration functions of the dense LM solve. `dense_ba_solve`
-# takes the dispatching wrappers by default; a comparison on the card can
-# pass PLAIN_OPS to run the same solve through the plain versions.
-DenseOps = namedtuple("DenseOps", "eval_assemble eval_assemble_bs schur_prepare_s")
-KERNEL_OPS = DenseOps(eval_assemble, eval_assemble_bs, schur_prepare_s)
+def schur_qqt_partial(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):
+    """K5: the per-shard Schur partial of the sharded engine.
+
+    Same inputs as kernel D. Returns (S_qqt [6K,6K] = +Q Q^T, zv [3,L],
+    vinv6 [6,L], red6 [6,K] = sum W zv), S_qqt and red6 in (i, k) order as
+    kernel C's: no U, no g_c, no jitter (the caller all-reduces them and
+    folds in the replicated damped U, `damped_system`)."""
+    if not cam_t.is_cuda:
+        return schur_qqt_partial_plain(lam, Vu, g_p, pt_valid, W18, cam_t,
+                                       n_cams)
+    O, L = _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t)
+    K = n_cams
+    dev = cam_t.device
+    f32 = torch.float32
+    S = torch.empty((6 * K, 6 * K), dtype=f32, device=dev)
+    red6 = torch.empty((6, K), dtype=f32, device=dev)
+    zv = torch.empty((3, L), dtype=f32, device=dev)
+    vinv6 = torch.empty((6, L), dtype=f32, device=dev)
+    code = kernels.lib("schur_s").schur_qqt_partial(
+        lam.data_ptr(), Vu.data_ptr(), g_p.data_ptr(), pt_valid.data_ptr(),
+        W18.data_ptr(), cam_t.data_ptr(), O, L, K, S.data_ptr(),
+        red6.data_ptr(), zv.data_ptr(), vinv6.data_ptr(),
+        kernels.stream_of(cam_t))
+    kernels.check(code, "schur_qqt_partial")
+    kernels.LAUNCHES["schur_qqt_partial"] += 1
+    return S, zv, vinv6, red6
+
+
+def schur_prepare(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):
+    """Kernel D: the Schur prepare of one LM iteration, G to memory.
+
+    lam: 0-d float32 tensor; Vu [6,L]; g_p [3,L]; pt_valid [L] bool;
+    W18 [18,O,L]; cam_t [O,L] int32. Returns (G [18,O,L], zv [3,L],
+    vinv6 [6,L], red6 [6,K]) as the plain version."""
+    if not cam_t.is_cuda:
+        return schur_prepare_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams)
+    O, L = _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t)
+    K = n_cams
+    dev = cam_t.device
+    f32 = torch.float32
+    G = torch.empty((18, O, L), dtype=f32, device=dev)
+    zv = torch.empty((3, L), dtype=f32, device=dev)
+    vinv6 = torch.empty((6, L), dtype=f32, device=dev)
+    red6 = torch.empty((6, K), dtype=f32, device=dev)
+    code = kernels.lib("schur_prepare").schur_prepare(
+        lam.data_ptr(), Vu.data_ptr(), g_p.data_ptr(), pt_valid.data_ptr(),
+        W18.data_ptr(), cam_t.data_ptr(), O, L, K, G.data_ptr(), zv.data_ptr(),
+        vinv6.data_ptr(), red6.data_ptr(), kernels.stream_of(cam_t))
+    kernels.check(code, "schur_prepare")
+    kernels.LAUNCHES["schur_prepare"] += 1
+    return G, zv, vinv6, red6
+
+
+# The per-iteration functions of the dense LM solve. `dense_ba_solve` takes
+# the dispatching wrappers by default; a comparison on the card can pass
+# PLAIN_OPS to run the same solve through the plain versions.
+DenseOps = namedtuple("DenseOps", "eval_assemble eval_assemble_bs "
+                      "schur_prepare_s schur_qqt_partial schur_prepare")
+KERNEL_OPS = DenseOps(eval_assemble, eval_assemble_bs, schur_prepare_s,
+                      schur_qqt_partial, schur_prepare)
 PLAIN_OPS = DenseOps(eval_assemble_plain, eval_assemble_bs_plain,
-                     schur_prepare_s_plain)
+                     schur_prepare_s_plain, schur_qqt_partial_plain,
+                     schur_prepare_plain)

@@ -9,23 +9,43 @@ script exits non-zero without printing the final line:
 1. environment: torch / CUDA versions and `nvidia-smi` name + power limit
    (also printed raw on a line of its own);
 2. build: compiles the kernels in bundleadjustment_tpu_torch/csrc/ with nvcc
-   for sm_90a and prints the build seconds;
+   for sm_90a, one nvcc process per source, all started together, and
+   prints the build seconds;
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the shapes the main path gives it (kernel A bit-identical;
-   kernels B and C to the stated tolerances), each timed as device time per
+   the card, at the shapes the main paths give it (kernel A bit-identical;
+   B, C, K5 and D to the stated tolerances), each timed as device time per
    call ("ms", torch.profiler kernel durations, or CUDA events where the
    profiler delivers no kernel records: "ms_source" says which) and as
    CUDA-event time per back-to-back call ("call_ms", which includes the
-   host's per-call cost);
+   host's per-call cost), beside its bound ("bound_ms": the larger of the
+   bytes it must move over 3.35 TB/s and its operations over 67 TFLOP/s,
+   counted from this run's inputs). At the config-7 shape (71 cameras,
+   10,842 landmarks, 156,774 observations, O = 72) it also times the two
+   Schur-step routes on the same inputs: kernel C alone, and kernel D + Pf
+   (index_add_) + Q Q^T (matmul), each part alone too. The records give
+   only those counts and the longest track (71 observations); how many
+   landmarks every camera sees (n_all) and the law of the other track
+   lengths are assumptions, so the routes are timed at n_all = 1, 50 and
+   500;
 4. dense solve: 128 cams / 100k landmarks (the two best-observed cameras
    fixed, so the solution has no free gauge), 10 LM iterations through the
    kernels and through the plain versions; costs and cameras must agree and
    the cost must decrease;
-5. pipeline: writes a TUM-format rendered sequence (640x480, 40 frames) and
+5. large-O solve: the config-7-shaped problem through `dense_ba_solve`
+   (O = 72: route (c), kernel D + Pf + Q Q^T), 10 LM iterations, kernels
+   against plain versions with the criteria of phase 4;
+6. pipeline: writes a TUM-format rendered sequence (640x480, 40 frames) and
    runs the port's CLI on it with default flags (gtdepth, ba, local BA,
-   3x100 final BA, 1000 features, 8 levels); checks ATE, that every kernel
-   was launched by that run, and the output files; then times the kernels
-   at the pipeline's own final-BA shape.
+   3x100 final BA, 1000 features, 8 levels); checks ATE and the output
+   files; then times the kernels at the pipeline's own final-BA shape;
+7. sharded pipeline: the same sequence through the CLI with `--global-ba
+   sharded`, inside an NCCL process group of world size 1 (file rendezvous
+   in the temporary directory); ATE < 0.05 m and within 0.001 m of phase 6,
+   and the solve's all-reduces and point gather ran as NCCL collectives;
+8. per-path launch check: every kernel was launched by the run of the path
+   that carries it (A, B, B with back-substitution and C: phase 6; K5:
+   phase 7, whose local BAs also launch B and C; D: phase 5). Each count is
+   reset just before that run and read just after it.
 
 Then a `{"kernels": [...]}` line and, last, `{"ok": true, "device": ...}`.
 Needs one CUDA device; exits non-zero without one.
@@ -41,19 +61,36 @@ import tempfile
 import time
 
 
-# kernel name -> (route, source, TPU kernel it replaces)
+# kernel name -> (route, source, TPU kernel it replaces, the run that must
+# launch it)
 KERNELS = {
     "hamming_top2": ("cuda", "bundleadjustment_tpu_torch/csrc/hamming.cu",
-                     "bundleadjustment_tpu/ops/pallas_matching.py:125"),
+                     "bundleadjustment_tpu/ops/pallas_matching.py:125",
+                     "pipeline"),
     "dense_eval_assemble": (
         "cuda", "bundleadjustment_tpu_torch/csrc/dense_eval.cu",
-        "bundleadjustment_tpu/solvers/pallas_dense_eval.py:255"),
+        "bundleadjustment_tpu/solvers/pallas_dense_eval.py:255", "pipeline"),
     "dense_eval_assemble_bs": (
         "cuda", "bundleadjustment_tpu_torch/csrc/dense_eval.cu",
-        "bundleadjustment_tpu/solvers/pallas_dense_eval.py:338"),
+        "bundleadjustment_tpu/solvers/pallas_dense_eval.py:338", "pipeline"),
     "schur_prepare_s": ("cuda", "bundleadjustment_tpu_torch/csrc/schur_s.cu",
-                        "bundleadjustment_tpu/solvers/pallas_dense_eval.py:849"),
+                        "bundleadjustment_tpu/solvers/pallas_dense_eval.py:849",
+                        "pipeline"),
+    "schur_qqt_partial": ("cuda", "bundleadjustment_tpu_torch/csrc/schur_s.cu",
+                          "bundleadjustment_tpu/solvers/pallas_dense_eval.py:849",
+                          "pipeline_sharded"),
+    "schur_prepare": ("cuda", "bundleadjustment_tpu_torch/csrc/schur_prepare.cu",
+                      "bundleadjustment_tpu/solvers/pallas_dense_eval.py:533",
+                      "large_o_solve"),
 }
+# what else each path's run must launch (the sharded pipeline's local BAs
+# and evals still go through B and C)
+ALSO_LAUNCHED = {"pipeline_sharded": ("dense_eval_assemble",
+                                      "dense_eval_assemble_bs", "schur_prepare_s")}
+# published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
+# float32 outside the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
 RTOL, ATOL = 2e-4, 2e-3  # block outputs (float atomics reorder the sums)
 COST_RTOL = 1e-5
 
@@ -163,6 +200,61 @@ def check_blocks(tag, name, got, ref):
 
 
 # ---------------------------------------------------------------------------
+# bounds: the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+# Bytes: each input read once and each output written once. Operations:
+# what this run's data needs, counted from the kernels' arithmetic (valid
+# observation slots, all-zero W slots skipped, a landmark's slot pairs once
+# each), against the float32 rate outside the tensor cores. Kernel A's
+# operations are integer (XOR, popcount, add, compare); the table has no
+# integer rate outside the tensor cores, so they are counted at the float32
+# rate, which understates A's bound.
+
+EVAL_OPS = 320  # flops per valid observation of kernel B's eval + assembly
+BS_OPS = 36  # more per valid observation for the back-substitution
+PREP_OPS = 60  # per landmark: damping, V^-1, chol(V^-1), zv
+G_OPS, WZ_OPS = 90, 30  # per non-zero W slot: G = W C, W zv
+PAIR_OPS = 216  # per slot pair of a landmark: 36 entries of G G'^T, each 3
+                # multiplies, 2 adds and the add into S
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, n_ops):
+    """{"bound_ms", "bound_by", "bytes", "ops"}: the larger of bytes over the
+    HBM rate and operations over the float32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(n_bytes), "ops": int(n_ops)}
+
+
+def hamming_bound(q, t, v, outs):
+    M1 = q.shape[1]
+    pairs = M1 * int(v.sum())  # 8 XOR + 8 popcount + 7 adds + 2 compares
+    return bound(nbytes(q, t, v, *outs), 25 * pairs)
+
+
+def slot_counts(W18):
+    """(non-zero W slots per landmark [L], their sum, the slot pairs)."""
+    n = (W18 != 0).any(0).sum(0).double()
+    return n, float(n.sum()), float((n * (n + 1) / 2).sum())
+
+
+def schur_bound(ins, outs, W18, L):
+    _, slots, pairs = slot_counts(W18)
+    return bound(nbytes(*ins, *outs),
+                 PREP_OPS * L + (G_OPS + WZ_OPS) * slots + PAIR_OPS * pairs)
+
+
+def prepare_bound(ins, outs, W18, L):
+    _, slots, _ = slot_counts(W18)
+    return bound(nbytes(*ins, *outs), PREP_OPS * L + (G_OPS + WZ_OPS) * slots)
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -222,9 +314,9 @@ def phase_hamming(rng, device, results):
                 raise AssertionError(f"hamming_top2 B={B}: {n} not bit-identical")
         rows.append({"batch": B, "m1": 1000, "m2": 1000, "bit_identical": True,
                      **time_pair(lambda: hamming_top2(q, t, v),
-                                 lambda: hamming_top2_plain(q, t, v))})
-    results["hamming_top2"] = {"max_abs_err": 0.0, "ms": rows[-1]["ms"],
-                               "plain_ms": rows[-1]["plain_ms"], "shapes": rows}
+                                 lambda: hamming_top2_plain(q, t, v)),
+                     **hamming_bound(q, t, v, got), "library_ms": None})
+    results["hamming_top2"] = {"max_abs_err": 0.0, "shapes": rows, **rows[-1]}
     emit({"phase": "kernel", "name": "hamming_top2", "shapes": rows})
 
 
@@ -269,9 +361,12 @@ def synthetic_dense(n_cams, n_pts, obs_per_pt, max_obs, device, copies=1,
     return prob, cams, pts
 
 
-def compare_dense_kernels(prob, cams, pts, tag):
-    """Kernels B (seed, bs) and C against their plain versions at one shape.
-    Returns {kernel: {"max_abs_err", "ms", "plain_ms"}}."""
+def compare_dense_kernels(prob, cams, pts, tag, names=None):
+    """Kernels B (seed, bs), C, K5 and D against their plain versions at one
+    shape (`names`: the kernels to check, default all). Returns {kernel:
+    {"max_abs_err", "ms", "plain_ms", ..., "bound_ms", "bound_by",
+    "library_ms"}}; no single PyTorch call computes any of these functions,
+    so "library_ms" is None."""
     import torch
 
     from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat
@@ -279,6 +374,8 @@ def compare_dense_kernels(prob, cams, pts, tag):
     from bundleadjustment_tpu_torch.solvers.dense_ba import _to_cm
     from bundleadjustment_tpu_torch.solvers.schur import cholesky_solve_nan
 
+    names = set(names or ("dense_eval_assemble", "dense_eval_assemble_bs",
+                          "schur_prepare_s", "schur_qqt_partial", "schur_prepare"))
     cm = _to_cm(prob)
     O, L = cm.cam_t.shape
     K = cm.cam_fixed.shape[0]
@@ -286,112 +383,273 @@ def compare_dense_kernels(prob, cams, pts, tag):
     t = cams[:, 3:].contiguous()
     Xt = pts.T.contiguous()
     args = (cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t)
+    n_valid = int(cm.valid_t.sum())
     out = {}
 
-    seed_k = dk.eval_assemble(*args, R, t, Xt)
     seed_p = dk.eval_assemble_plain(*args, R, t, Xt)
-    torch.cuda.synchronize()
-    errs = [check_close(f"{tag} B cost", seed_k[0], seed_p[0], rtol=COST_RTOL,
-                        atol=0.0)]
-    errs += [check_blocks(f"{tag} B", n, g, r) for g, r, n in
-             zip(seed_k[1:], seed_p[1:], ("red", "Vu", "g_p", "W"))]
-    out["dense_eval_assemble"] = {
-        "max_abs_err": max(errs),
-        **time_pair(lambda: dk.eval_assemble(*args, R, t, Xt),
-                    lambda: dk.eval_assemble_plain(*args, R, t, Xt))}
+    if "dense_eval_assemble" in names:
+        seed_k = dk.eval_assemble(*args, R, t, Xt)
+        torch.cuda.synchronize()
+        errs = [check_close(f"{tag} B cost", seed_k[0], seed_p[0],
+                            rtol=COST_RTOL, atol=0.0)]
+        errs += [check_blocks(f"{tag} B", n, g, r) for g, r, n in
+                 zip(seed_k[1:], seed_p[1:], ("red", "Vu", "g_p", "W"))]
+        out["dense_eval_assemble"] = {
+            "max_abs_err": max(errs),
+            **time_pair(lambda: dk.eval_assemble(*args, R, t, Xt),
+                        lambda: dk.eval_assemble_plain(*args, R, t, Xt)),
+            **bound(nbytes(*args, R, t, Xt, *seed_k), EVAL_OPS * n_valid),
+            "library_ms": None}
 
     cost, red, Vu, g_p, W = seed_p
     W18 = W.reshape(18, O, L)
     lam = torch.tensor(1e-4, device=cams.device)
     c_args = (lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K, red, cm.cam_fixed)
-    s_k = dk.schur_prepare_s(*c_args)
-    s_p = dk.schur_prepare_s_plain(*c_args)
-    torch.cuda.synchronize()
-    errs = [check_blocks(f"{tag} C", "S", s_k[0], s_p[0]),
-            check_blocks(f"{tag} C", "b", s_k[3], s_p[3]),
-            check_close(f"{tag} C zv", s_k[1], s_p[1]),
-            check_close(f"{tag} C vinv6", s_k[2], s_p[2])]
-    out["schur_prepare_s"] = {
-        "max_abs_err": max(errs),
-        **time_pair(lambda: dk.schur_prepare_s(*c_args),
-                    lambda: dk.schur_prepare_s_plain(*c_args))}
+    c_ins = (lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, red, cm.cam_fixed)
+    if names & {"schur_prepare_s", "dense_eval_assemble_bs"}:
+        s_p = dk.schur_prepare_s_plain(*c_args)
+    if "schur_prepare_s" in names:
+        s_k = dk.schur_prepare_s(*c_args)
+        torch.cuda.synchronize()
+        errs = [check_blocks(f"{tag} C", "S", s_k[0], s_p[0]),
+                check_blocks(f"{tag} C", "b", s_k[3], s_p[3]),
+                check_close(f"{tag} C zv", s_k[1], s_p[1]),
+                check_close(f"{tag} C vinv6", s_k[2], s_p[2])]
+        out["schur_prepare_s"] = {
+            "max_abs_err": max(errs),
+            **time_pair(lambda: dk.schur_prepare_s(*c_args),
+                        lambda: dk.schur_prepare_s_plain(*c_args)),
+            **schur_bound(c_ins, s_k, W18, L), "library_ms": None}
 
-    S, _zv, vinv6, b = s_p
-    dc = cholesky_solve_nan(S, b).reshape(6, K).T
-    dc = torch.where(cm.cam_fixed[:, None], torch.zeros_like(dc), dc).contiguous()
-    R_new = (aa_to_rotmat(dc[:, :3]) @ R).contiguous()
-    t_new = (t + dc[:, 3:]).contiguous()
-    bs_args = (*args, R_new, t_new, dc, Xt, W18, vinv6, g_p, cm.pt_valid)
-    bs_k = dk.eval_assemble_bs(*bs_args)
-    bs_p = dk.eval_assemble_bs_plain(*bs_args)
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(bs_p[0])):
-        raise AssertionError(f"{tag}: non-finite trial cost")
-    errs = [check_close(f"{tag} Bbs cost", bs_k[0], bs_p[0], rtol=COST_RTOL,
-                        atol=0.0)]
-    errs += [check_blocks(f"{tag} Bbs", n, g, r) for g, r, n in
-             zip(bs_k[1:5], bs_p[1:5], ("red", "Vu", "g_p", "W"))]
-    errs += [check_close(f"{tag} Bbs Xt_new", bs_k[5], bs_p[5])]
-    out["dense_eval_assemble_bs"] = {
-        "max_abs_err": max(errs),
-        **time_pair(lambda: dk.eval_assemble_bs(*bs_args),
-                    lambda: dk.eval_assemble_bs_plain(*bs_args))}
+    p_args = c_args[:7]
+    if "schur_qqt_partial" in names:
+        q_k = dk.schur_qqt_partial(*p_args)
+        q_p = dk.schur_qqt_partial_plain(*p_args)
+        torch.cuda.synchronize()
+        errs = [check_blocks(f"{tag} K5", "S", q_k[0], q_p[0]),
+                check_blocks(f"{tag} K5", "red6", q_k[3], q_p[3]),
+                check_close(f"{tag} K5 zv", q_k[1], q_p[1]),
+                check_close(f"{tag} K5 vinv6", q_k[2], q_p[2])]
+        out["schur_qqt_partial"] = {
+            "max_abs_err": max(errs),
+            **time_pair(lambda: dk.schur_qqt_partial(*p_args),
+                        lambda: dk.schur_qqt_partial_plain(*p_args)),
+            **schur_bound(p_args[:6], q_k, W18, L), "library_ms": None}
+
+    if "schur_prepare" in names:
+        d_k = dk.schur_prepare(*p_args)
+        d_p = dk.schur_prepare_plain(*p_args)
+        torch.cuda.synchronize()
+        errs = [check_blocks(f"{tag} D", "W", d_k[0].reshape(6, 3, O, L),
+                             d_p[0].reshape(6, 3, O, L)),
+                check_blocks(f"{tag} D", "red6", d_k[3], d_p[3]),
+                check_close(f"{tag} D zv", d_k[1], d_p[1]),
+                check_close(f"{tag} D vinv6", d_k[2], d_p[2])]
+        out["schur_prepare"] = {
+            "max_abs_err": max(errs),
+            **time_pair(lambda: dk.schur_prepare(*p_args),
+                        lambda: dk.schur_prepare_plain(*p_args)),
+            **prepare_bound(p_args[:6], d_k, W18, L), "library_ms": None}
+
+    if "dense_eval_assemble_bs" in names:
+        S, _zv, vinv6, b = s_p
+        dc = cholesky_solve_nan(S, b).reshape(6, K).T
+        dc = torch.where(cm.cam_fixed[:, None], torch.zeros_like(dc), dc).contiguous()
+        R_new = (aa_to_rotmat(dc[:, :3]) @ R).contiguous()
+        t_new = (t + dc[:, 3:]).contiguous()
+        bs_args = (*args, R_new, t_new, dc, Xt, W18, vinv6, g_p, cm.pt_valid)
+        bs_k = dk.eval_assemble_bs(*bs_args)
+        bs_p = dk.eval_assemble_bs_plain(*bs_args)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(bs_p[0])):
+            raise AssertionError(f"{tag}: non-finite trial cost")
+        errs = [check_close(f"{tag} Bbs cost", bs_k[0], bs_p[0], rtol=COST_RTOL,
+                            atol=0.0)]
+        errs += [check_blocks(f"{tag} Bbs", n, g, r) for g, r, n in
+                 zip(bs_k[1:5], bs_p[1:5], ("red", "Vu", "g_p", "W"))]
+        errs += [check_close(f"{tag} Bbs Xt_new", bs_k[5], bs_p[5])]
+        out["dense_eval_assemble_bs"] = {
+            "max_abs_err": max(errs),
+            **time_pair(lambda: dk.eval_assemble_bs(*bs_args),
+                        lambda: dk.eval_assemble_bs_plain(*bs_args)),
+            **bound(nbytes(*bs_args, *bs_k), (EVAL_OPS + BS_OPS) * n_valid),
+            "library_ms": None}
     return out
 
 
 def phase_dense_kernels(device, results):
-    """B and C at the two solve shapes of the records, and at 600 cameras
-    (12 cameras x 50 copies, 3k landmarks), where kernel B's [K,27] table no
-    longer fits its 48 KB of shared memory and the per-camera rows go to
-    global atomics."""
+    """B, C, K5 and D at the two solve shapes of the records, and at 600
+    cameras (12 cameras x 50 copies, 3k landmarks), where kernel B's [K,27]
+    table no longer fits its 48 KB of shared memory and the per-camera rows
+    go to global atomics; D alone at 2,100 cameras (12 x 175), where its
+    [6,K] table does not fit either. Each kernel's reported time is at
+    128c/100k/O=8, D's at the config-7 shape (phase_large_o_kernels)."""
     shapes = {}
-    for tag, (nc, npt, opp, mo, copies) in {
-            "64c_10k_O16": (64, 10_000, 8, 16, 1),
-            "128c_100k_O8": (128, 100_000, 6, 8, 1),
-            "600c_3k_O16": (12, 3_000, None, 16, 50)}.items():
+    for tag, (nc, npt, opp, mo, copies, names) in {
+            "64c_10k_O16": (64, 10_000, 8, 16, 1, None),
+            "128c_100k_O8": (128, 100_000, 6, 8, 1, None),
+            "600c_3k_O16": (12, 3_000, None, 16, 50, None),
+            "2100c_3k_O16": (12, 3_000, None, 16, 175, ("schur_prepare",))}.items():
         prob, cams, pts = synthetic_dense(nc, npt, opp, mo, device, copies)
-        res = compare_dense_kernels(prob, cams, pts, tag)
+        res = compare_dense_kernels(prob, cams, pts, tag, names)
         O = int(prob.cam_idx.shape[1])
         shapes[tag] = res
         emit({"phase": "kernel", "shape": tag, "K": nc * copies, "L": npt,
               "O": O, **{k: v for k, v in res.items()}})
-    for name in ("dense_eval_assemble", "dense_eval_assemble_bs",
-                 "schur_prepare_s"):
+    for name in shapes["128c_100k_O8"]:
+        mine = {k: v[name] for k, v in shapes.items() if name in v}
         results[name] = {
-            "max_abs_err": max(s[name]["max_abs_err"] for s in shapes.values()),
-            "ms": shapes["128c_100k_O8"][name]["ms"],
-            "plain_ms": shapes["128c_100k_O8"][name]["plain_ms"],
-            "shapes": {k: v[name] for k, v in shapes.items()}}
+            **shapes["128c_100k_O8"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
+            "shapes": mine}
 
 
-def phase_dense_solve(device):
+def track_dense(device, n_cams=71, n_pts=10_842, n_obs=156_774, n_all=500):
+    """The config-7-shaped dense problem (make_track_scene: every camera sees
+    the n_all tail landmarks, so O = 72), with the two most-observed cameras
+    fixed at their true poses. The counts are the records'; n_all = 500 and
+    the track-length law are assumptions (the records keep no map)."""
+    import numpy as np
     import torch
 
+    from bundleadjustment_tpu_torch.data.track_scene import make_track_scene
+    from bundleadjustment_tpu_torch.solvers.dense_ba import densify_problem
+
+    sc = make_track_scene(n_cams=n_cams, n_pts=n_pts, n_obs=n_obs, n_all=n_all)
+    cam_fixed = np.zeros(n_cams, bool)
+    gauge = np.argsort(-np.bincount(sc.cam_idx, minlength=n_cams), kind="stable")[:2]
+    cam_fixed[gauge] = True
+    sc.extr_init[gauge] = sc.extr_gt[gauge]
+    prob, dropped = densify_problem(sc.K4, sc.cam_idx, sc.pt_idx, sc.uv,
+                                    sc.sigma2, sc.valid, cam_fixed, n_pts,
+                                    max_obs=128, device=device)
+    if dropped:
+        raise AssertionError(f"config-7 shape: {dropped} observations dropped")
+    return (prob, torch.from_numpy(sc.extr_init).to(device),
+            torch.from_numpy(sc.points_init).to(device))
+
+
+# landmarks seen by all 71 cameras at which the Schur-step routes are timed:
+# the records imply at least one (the longest track has 71 observations)
+N_ALL_SWEEP = (1, 50, 500)
+
+
+def schur_step_routes(device, n_all):
+    """The two Schur-step routes on the config-7-shaped problem with n_all
+    landmarks seen by every camera, on the same inputs: C alone
+    ("route_s"), and D + Pf + Q Q^T ("route_prepare"), with Pf (one
+    index_add_) and Q Q^T (one matmul) also timed alone."""
+    import torch
+
+    from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat
+    from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
+    from bundleadjustment_tpu_torch.solvers.dense_ba import _to_cm
+
+    prob, cams, pts = track_dense(device, n_all=n_all)
+    cm = _to_cm(prob)
+    O, L = cm.cam_t.shape
+    K = cm.cam_fixed.shape[0]
+    R = aa_to_rotmat(cams[:, :3]).contiguous()
+    _, red, Vu, g_p, W = dk.eval_assemble(cm.K4, cm.cam_t, cm.uv_t,
+                                          cm.inv_sigma_t, cm.valid_t, cm.fixed_t,
+                                          R, cams[:, 3:].contiguous(),
+                                          pts.T.contiguous())
+    W18 = W.reshape(18, O, L)
+    lam = torch.tensor(1e-4, device=device)
+    p_args = (lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K)
+    G = dk.schur_prepare(*p_args)[0]
+    Pf = dk.pf_index_add(G, cm.cam_t, K)
+    _, _, pairs = slot_counts(W18)
+
+    def route_prepare():
+        G_ = dk.schur_prepare(*p_args)[0]
+        return dk.qqt(dk.pf_index_add(G_, cm.cam_t, K), K)
+
+    routes = {"n_all": n_all, "O": O, "slot_pairs": int(pairs)}
+    for label, fn in (("route_s", lambda: dk.schur_prepare_s(*p_args, red,
+                                                             cm.cam_fixed)),
+                      ("route_prepare", route_prepare),
+                      ("pf_index_add", lambda: dk.pf_index_add(G, cm.cam_t, K)),
+                      ("qqt_matmul", lambda: dk.qqt(Pf, K))):
+        ms, src = device_time(fn)
+        routes[label] = {"ms": ms, "ms_source": src, "call_ms": cuda_time(fn)}
+    return routes
+
+
+def phase_large_o_kernels(device, results):
+    """C, K5 and D at the config-7 shape (n_all = 500), and the Schur-step
+    routes at every n_all of N_ALL_SWEEP. D's reported time is this
+    shape's."""
+    prob, cams, pts = track_dense(device)
+    res = compare_dense_kernels(prob, cams, pts, "config7",
+                                ("schur_prepare_s", "schur_qqt_partial",
+                                 "schur_prepare"))
+    routes = {f"n_all_{n}": schur_step_routes(device, n) for n in N_ALL_SWEEP}
+    emit({"phase": "kernel", "shape": "config7", "K": int(cams.shape[0]),
+          "L": int(pts.shape[0]), "O": int(prob.cam_idx.shape[1]),
+          "n_obs": int(prob.valid.sum()), **res, "schur_step_routes": routes})
+    d_shapes = {**results["schur_prepare"]["shapes"], "config7": res["schur_prepare"]}
+    results["schur_prepare"] = {
+        **res["schur_prepare"], "shapes": d_shapes,
+        "max_abs_err": max(v["max_abs_err"] for v in d_shapes.values())}
+    for name in ("schur_prepare_s", "schur_qqt_partial"):
+        results[name]["shapes"]["config7"] = res[name]
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           res[name]["max_abs_err"])
+
+
+def solve_both_ways(phase, prob, cams, pts, extra):
+    """10 LM iterations of `dense_ba_solve` through the kernels and through
+    the plain versions; cameras within 5e-4, final costs within rel 1e-3 and
+    a cost that decreases. Returns the launch counts of the kernel run."""
+    import torch
+
+    from bundleadjustment_tpu_torch import kernels
     from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
     from bundleadjustment_tpu_torch.solvers.dense_ba import dense_ba_solve
     from bundleadjustment_tpu_torch.solvers.lm import LMConfig
 
-    prob, cams, pts = synthetic_dense(128, 100_000, 6, 8, device, fix_gauge=True)
     cfg = LMConfig(max_iters=10)
     out = {}
     for label, ops in (("kernel", dk.KERNEL_OPS), ("plain", dk.PLAIN_OPS)):
         torch.cuda.synchronize()
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
         c, p, info = dense_ba_solve(prob, cams, pts, cfg, ops=ops)
         torch.cuda.synchronize()
         out[label] = (c, float(info["cost0"]), float(info["cost"]),
-                      time.perf_counter() - t0)
-    ck, c0, cost_k, sk = out["kernel"]
-    cp, _, cost_p, sp = out["plain"]
+                      time.perf_counter() - t0, kernels.launch_counts())
+    ck, c0, cost_k, sk, counts = out["kernel"]
+    cp, _, cost_p, sp, _ = out["plain"]
     cam_err = max_abs(ck, cp)
     rel = abs(cost_k - cost_p) / abs(cost_p)
-    emit({"phase": "dense_solve", "K": 128, "L": 100_000, "iters": 10,
-          "cost0": c0, "cost_kernel": cost_k, "cost_plain": cost_p,
-          "cost_rel_diff": rel, "cams_max_abs_diff": cam_err,
-          "wall_s_kernel": sk, "wall_s_plain": sp})
+    emit({"phase": phase, **extra, "iters": 10, "cost0": c0,
+          "cost_kernel": cost_k, "cost_plain": cost_p, "cost_rel_diff": rel,
+          "cams_max_abs_diff": cam_err, "wall_s_kernel": sk, "wall_s_plain": sp,
+          "launches": counts})
     if not (rel < 1e-3 and cam_err < 5e-4 and cost_k < c0):
-        raise AssertionError("dense solve: kernel and plain runs disagree or "
-                             "the cost did not decrease")
+        raise AssertionError(f"{phase}: kernel and plain runs disagree or the "
+                             "cost did not decrease")
+    return counts
+
+
+def phase_dense_solve(device):
+    prob, cams, pts = synthetic_dense(128, 100_000, 6, 8, device, fix_gauge=True)
+    solve_both_ways("dense_solve", prob, cams, pts, {"K": 128, "L": 100_000})
+
+
+def phase_large_o_solve(device):
+    """The config-7-shaped problem through route (c): kernel D + Pf + Q Q^T.
+    Returns the kernel run's launch counts."""
+    from bundleadjustment_tpu_torch.solvers.dense_ba import schur_route
+
+    prob, cams, pts = track_dense(device)
+    O = int(prob.cam_idx.shape[1])
+    if schur_route(O) != "prepare":
+        raise AssertionError(f"config-7 shape: O = {O} does not take route (c)")
+    return solve_both_ways("large_o_solve", prob, cams, pts,
+                           {"K": int(cams.shape[0]), "L": int(pts.shape[0]),
+                            "O": O, "n_obs": int(prob.valid.sum())})
 
 
 def write_sequence(root, n_frames):
@@ -411,40 +669,81 @@ def write_sequence(root, n_frames):
                    "cy": float(K4[3]), "width": 640, "height": 480}, f)
 
 
-def phase_pipeline(device, n_frames=40):
-    """Run the port's CLI end to end; returns (pipeline, launch counts)."""
+def phase_pipeline(device, data, n_frames, phase="pipeline", flags=()):
+    """Run the port's CLI end to end on the sequence in `data`; returns
+    (pipeline, results, launch counts of this run)."""
     import torch
 
     from bundleadjustment_tpu_torch import cli, kernels
 
     with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "seq")
-        write_sequence(data, n_frames)
         out = os.path.join(tmp, "out")
         argv = ["--dataset-name", "synthetic", "--dataset-path", data,
                 "--output-path", out, "--frames", str(n_frames), "--local-ba",
-                "--trajectory", "--device", str(device)]
+                "--trajectory", "--device", str(device), *flags]
+        torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         pipe, res = cli.run_cli(argv)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
         prefix = os.path.join(out, "synthetic_gtdepth_ba_localba_f%d" % n_frames)
         outputs_exist = [os.path.exists(prefix + s) for s in
                          ("_estimatedPoses.txt", "_mesh.off", "_results.json")]
-    emit({"phase": "pipeline", "frames": res["frames"],
+    emit({"phase": phase, "flags": list(flags), "frames": res["frames"],
           "ate_rmse_m": res.get("ate_rmse"), "keyframes": res["keyframes"],
           "keyframes_final": res["n_keyframes_final"],
           "landmarks": res["n_map_points"], "wall_s": wall,
           "frames_per_s": res["frames"] / wall, "launches": counts,
           "phase_times": res["phase_times"], "outputs_exist": outputs_exist})
     if not (res.get("ate_rmse") is not None and res["ate_rmse"] < 0.05):
-        raise AssertionError(f"pipeline ATE {res.get('ate_rmse')} >= 0.05 m")
+        raise AssertionError(f"{phase} ATE {res.get('ate_rmse')} >= 0.05 m")
     if not all(outputs_exist):
-        raise AssertionError("pipeline output files missing")
-    return pipe, counts
+        raise AssertionError(f"{phase} output files missing")
+    return pipe, res, counts
+
+
+def phase_pipeline_sharded(device, data, n_frames, ate_default):
+    """The CLI with --global-ba sharded inside an NCCL process group of
+    world size 1; ATE within 0.001 m of the default run, and the solve's
+    all-reduces and gathers counted. NCCL makes its communicator at the
+    first collective: that one (a 1-float all-reduce) is timed on its own
+    before the run. Returns the run's launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from bundleadjustment_tpu_torch.parallel import multihost
+    from bundleadjustment_tpu_torch.parallel.sharded_dense_ba import COLLECTIVES
+
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = multihost.init_process_group(
+            0, 1, os.path.join(tmp, "rendezvous"), "cuda")
+        try:
+            t0 = time.perf_counter()
+            dist.all_reduce(torch.ones(1, device=device))
+            torch.cuda.synchronize()
+            first_collective_s = time.perf_counter() - t0
+            for k in COLLECTIVES:
+                COLLECTIVES[k] = 0
+            _, res, counts = phase_pipeline(device, data, n_frames,
+                                            "pipeline_sharded",
+                                            ("--global-ba", "sharded"))
+            collectives = dict(COLLECTIVES)
+        finally:
+            multihost.destroy_process_group()
+    diff = abs(res["ate_rmse"] - ate_default)
+    emit({"phase": "pipeline_sharded_vs_default", "backend": backend,
+          "world_size": 1, "first_collective_s": first_collective_s,
+          "collectives": collectives, "ate_default_m": ate_default,
+          "ate_sharded_m": res["ate_rmse"], "ate_abs_diff_m": diff})
+    if backend != "nccl" or not all(collectives.values()):
+        raise AssertionError(f"the sharded run issued no NCCL collectives: "
+                             f"{backend} {collectives}")
+    if not diff < 1e-3:
+        raise AssertionError(f"sharded pipeline ATE differs from the default run "
+                             f"by {diff} m")
+    return counts
 
 
 def phase_pipeline_shapes(pipe, results):
@@ -466,6 +765,23 @@ def phase_pipeline_shapes(pipe, results):
         results[name]["shapes"]["pipeline_final_ba"] = r
 
 
+def check_launches(runs):
+    """Per-path launch check: each kernel launched by the run of its path
+    (KERNELS), and the sharded run's local BAs and evals through B and C."""
+    need = {}
+    for name, (_, _, _, path) in KERNELS.items():
+        need.setdefault(path, []).append(name)
+    for path, names in ALSO_LAUNCHED.items():
+        need[path] = need.get(path, []) + list(names)
+    missing = {path: [n for n in names if runs[path].get(n, 0) == 0]
+               for path, names in need.items()}
+    missing = {p: n for p, n in missing.items() if n}
+    emit({"phase": "launch_check", "required": need,
+          "launches": {p: runs[p] for p in need}, "missing": missing})
+    if missing:
+        raise AssertionError(f"runs that did not launch their kernels: {missing}")
+
+
 def main():
     import torch
 
@@ -484,17 +800,23 @@ def main():
     results = {}
     phase_hamming(rng, device, results)
     phase_dense_kernels(device, results)
+    phase_large_o_kernels(device, results)
     phase_dense_solve(device)
-    pipe, counts = phase_pipeline(device)
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise AssertionError(f"the pipeline run launched no {missing}")
+    runs = {"large_o_solve": phase_large_o_solve(device)}
+    n_frames = 40
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "seq")
+        write_sequence(data, n_frames)
+        pipe, res, runs["pipeline"] = phase_pipeline(device, data, n_frames)
+        runs["pipeline_sharded"] = phase_pipeline_sharded(
+            device, data, n_frames, res["ate_rmse"])
+    check_launches(runs)
     phase_pipeline_shapes(pipe, results)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
-        for name, (route, src, rep) in KERNELS.items()]})
+         "launches": runs[path][name], **{k: results[name][k] for k in keys}}
+        for name, (route, src, rep, path) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

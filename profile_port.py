@@ -35,7 +35,7 @@ import time
 
 # the kernels of bundleadjustment_tpu_torch/csrc/*.cu, by their __global__ names
 OURS = ("hamming_top2_kernel", "dense_eval_kernel", "schur_s_init", "rhs_init",
-        "schur_s_accum")
+        "schur_s_accum", "schur_prepare_kernel")
 
 
 def emit(obj):

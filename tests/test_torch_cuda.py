@@ -4,19 +4,22 @@ PyTorch version on the same CUDA tensors. They skip without a card.
 This file imports no jax, so it runs on a machine with a card and without
 jax: `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
 
-Tolerances: kernel A bit-identical. Kernels B and C sum per-camera rows,
-S and b with float atomics, in an order that changes from run to run:
-cost rtol 1e-5; red, Vu, g_p, W, S and b rtol 2e-4 / atol 2e-3 relative to
-the max magnitude of each block (`torch_port_helpers.block_scale`); zv,
-vinv6 and Xt_new elementwise. Dense solve: cameras atol 5e-4, final cost
-rtol 1e-3.
+Tolerances: kernel A bit-identical. Kernels B, C, K5 and D sum per-camera
+rows, S and b with float atomics, in an order that changes from run to run:
+cost rtol 1e-5; red, Vu, g_p, W, S, b, red6 and G rtol 2e-4 / atol 2e-3
+relative to the max magnitude of each block
+(`torch_port_helpers.block_scale`); zv, vinv6 and Xt_new elementwise. Dense
+solves: cameras atol 5e-4, final cost rtol 1e-3.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from bundleadjustment_tpu_torch import kernels
 from bundleadjustment_tpu_torch.data.synthetic import make_synthetic_scene
+from bundleadjustment_tpu_torch.data.track_scene import make_track_scene
+from bundleadjustment_tpu_torch.parallel import sharded_dense_ba as tsh
 from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat
 from bundleadjustment_tpu_torch.ops import hamming as th
 from bundleadjustment_tpu_torch.solvers import dense_ba as td
@@ -127,3 +130,84 @@ def test_dense_solve_kernels_match_plain_on_card(cuda_device):
     np.testing.assert_allclose(ck.cpu().numpy(), cp.cpu().numpy(), atol=5e-4)
     np.testing.assert_allclose(float(ik["cost"]), float(ip["cost"]), rtol=1e-3)
     assert float(ik["cost"]) < float(ik["cost0"])
+
+
+def _prepare_args(device, copies):
+    """The inputs of K5 and kernel D at 12 x `copies` cameras."""
+    prob, cams, pts = _scene(12, 3000, 7, 0.4, device, copies=copies)
+    cm = td._to_cm(prob)
+    O, L = cm.cam_t.shape
+    R = aa_to_rotmat(cams[:, :3]).contiguous()
+    _, _, Vu, gp, W = dk.eval_assemble_plain(
+        cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t, R,
+        cams[:, 3:].contiguous(), pts.T.contiguous())
+    return (torch.tensor(1e-3, device=device), Vu, gp, cm.pt_valid,
+            W.reshape(18, O, L), cm.cam_t, cm.cam_fixed.shape[0])
+
+
+def _check_prepare(args):
+    O, L = args[5].shape
+    got, ref = dk.schur_prepare(*args), dk.schur_prepare_plain(*args)
+    assert_blocks_close("W", got[0].reshape(6, 3, O, L), ref[0].reshape(6, 3, O, L))
+    assert_blocks_close("red6", got[3], ref[3])
+    for g, r in zip(got[1:3], ref[1:3]):  # zv, vinv6
+        assert_close(g, r)
+
+
+@pytest.mark.parametrize("copies", [1, 50])
+def test_schur_partial_and_prepare_match_plain_on_card(cuda_device, copies):
+    """K5 and kernel D at 12 cameras and at 600 (12 x 50 copies)."""
+    args = _prepare_args(cuda_device, copies)
+    got, ref = dk.schur_qqt_partial(*args), dk.schur_qqt_partial_plain(*args)
+    assert_blocks_close("S", got[0], ref[0])
+    assert_blocks_close("red6", got[3], ref[3])
+    for g, r in zip(got[1:3], ref[1:3]):  # zv, vinv6
+        assert_close(g, r)
+    _check_prepare(args)
+
+
+def test_schur_prepare_global_atomics_match_plain_on_card(cuda_device):
+    """Kernel D at 2,100 cameras (12 x 175 copies): its [6,K] table exceeds
+    48 KB of shared memory and red6 is summed with global atomics."""
+    _check_prepare(_prepare_args(cuda_device, 175))
+
+
+def test_large_o_solve_kernels_match_plain_on_card(cuda_device):
+    """O = 72: route (c), kernel D + Pf + Q Q^T."""
+    sc = make_track_scene(n_cams=71, n_pts=300, n_obs=4000, n_all=20, seed=3)
+    cf = np.zeros(71, bool)
+    gauge = np.argsort(-np.bincount(sc.cam_idx, minlength=71), kind="stable")[:2]
+    cf[gauge] = True
+    sc.extr_init[gauge] = sc.extr_gt[gauge]
+    prob, _ = td.densify_problem(sc.K4, sc.cam_idx, sc.pt_idx, sc.uv, sc.sigma2,
+                                 sc.valid, cf, 300, max_obs=128, device=cuda_device)
+    cams = torch.from_numpy(sc.extr_init).to(cuda_device)
+    pts = torch.from_numpy(sc.points_init).to(cuda_device)
+    cfg = LMConfig(max_iters=10)
+    kernels.reset_launch_counts()
+    ck, _, ik = td.dense_ba_solve(prob, cams, pts, cfg)
+    assert kernels.launch_counts()["schur_prepare"] == 10
+    cp, _, ip = td.dense_ba_solve(prob, cams, pts, cfg, ops=dk.PLAIN_OPS)
+    np.testing.assert_allclose(ck.cpu().numpy(), cp.cpu().numpy(), atol=5e-4)
+    np.testing.assert_allclose(float(ik["cost"]), float(ip["cost"]), rtol=1e-3)
+    assert float(ik["cost"]) < float(ik["cost0"])
+
+
+def test_one_shard_sharded_solve_matches_plain_on_card(cuda_device):
+    """The sharded engine without a group: route (b), K5."""
+    sc = make_synthetic_scene(n_cams=8, n_pts=256, pixel_noise=0.3, seed=53)
+    cf = np.zeros(8, bool)
+    cf[:2] = True
+    sc.extr_init[1] = sc.extr_gt[1]
+    prob, pts, _, _ = tsh.shard_dense_problem(
+        sc.K4, sc.cam_idx, sc.pt_idx, sc.uv, sc.sigma2, sc.valid, cf,
+        sc.points_init, 1, device=cuda_device)
+    cams = torch.from_numpy(sc.extr_init).to(cuda_device)
+    cfg = LMConfig(max_iters=8)
+    kernels.reset_launch_counts()
+    ck, _, ik = tsh.sharded_dense_ba_solve(prob, cams, pts, cfg)
+    assert kernels.launch_counts()["schur_qqt_partial"] == 8
+    cp, _, ip = td.dense_ba_solve(prob, cams, pts, cfg, ops=dk.PLAIN_OPS,
+                                  reduce=lambda x: x)
+    np.testing.assert_allclose(ck.cpu().numpy(), cp.cpu().numpy(), atol=5e-4)
+    np.testing.assert_allclose(float(ik["cost"]), float(ip["cost"]), rtol=1e-3)

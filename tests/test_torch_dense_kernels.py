@@ -61,7 +61,7 @@ def _check_eval(got, ref):
 def test_eval_assemble_matches_pallas(robust):
     _, _, cm, R, t, Xt = _setup()
     ref = jp.fused_eval_assemble(*_cm_args(cm), R, t, Xt, robust=robust, interpret=True)
-    tcm = interop.from_reference(cm)
+    tcm = interop.from_reference(cm, device="cpu")
     got = dk.eval_assemble(*_cm_args(tcm), as_tensor(R), as_tensor(t), as_tensor(Xt),
                            robust=robust)
     _check_eval(got, ref)
@@ -88,7 +88,7 @@ def _lm_inputs(cm, R, t, Xt, robust):
 def test_schur_prepare_s_matches_pallas(robust):
     _, _, cm, R, t, Xt = _setup()
     x = _lm_inputs(cm, R, t, Xt, robust)
-    tcm = interop.from_reference(cm)
+    tcm = interop.from_reference(cm, device="cpu")
     S, zv, vinv6, b = dk.schur_prepare_s(
         torch.tensor(1e-3), as_tensor(x["Vu"]), as_tensor(x["gp"]), tcm.pt_valid,
         as_tensor(x["W18"]), tcm.cam_t, R.shape[0], as_tensor(x["red"]),
@@ -130,7 +130,7 @@ def test_eval_assemble_bs_matches_pallas(robust):
     ref = jp.fused_eval_assemble_bs(*_cm_args(cm), R_new, t_new, dc, Xt, x["W18"],
                                     x["vinv6"], x["gp"], cm.pt_valid, robust=robust,
                                     interpret=True)
-    tcm = interop.from_reference(cm)
+    tcm = interop.from_reference(cm, device="cpu")
     got = dk.eval_assemble_bs(*_cm_args(tcm), as_tensor(R_new), as_tensor(t_new),
                               as_tensor(dc), as_tensor(Xt), as_tensor(x["W18"]),
                               as_tensor(x["vinv6"]), as_tensor(x["gp"]),
@@ -146,7 +146,8 @@ def test_densify_matches_jax(max_obs):
     ref, dropped = jd.densify_problem(sc.K4, sc.cam_idx, sc.pt_idx, sc.uv, sc.sigma2,
                                       sc.valid, cf, 150, max_obs=max_obs)
     got, dropped_t = td.densify_problem(sc.K4, sc.cam_idx, sc.pt_idx, sc.uv,
-                                        sc.sigma2, sc.valid, cf, 150, max_obs=max_obs)
+                                        sc.sigma2, sc.valid, cf, 150, max_obs=max_obs,
+                                        device="cpu")
     assert dropped == dropped_t
     for f in ("K4", "cam_idx", "uv", "sigma2", "valid", "cam_fixed", "pt_valid"):
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)))

@@ -12,16 +12,21 @@ its 160x120 texture-quantised trajectories are held to < 0.2 m."""
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from bundleadjustment_tpu.data.synthetic import render_plane_sequence, write_tum_format
 from bundleadjustment_tpu.data.tum import FrameData
 from bundleadjustment_tpu.metrics import evaluate_ate
 from bundleadjustment_tpu.pipeline import BundleAdjustmentPipeline as JaxPipeline
 from bundleadjustment_tpu.pipeline import PipelineConfig as JaxConfig
+from bundleadjustment_tpu.ops.features import Features as JaxFeatures
 from bundleadjustment_tpu_torch import cli
+from bundleadjustment_tpu_torch.interop import from_reference
+from bundleadjustment_tpu_torch.solvers.dense_ba import densify_problem
 from bundleadjustment_tpu_torch.pipeline.config import PipelineConfig
 from bundleadjustment_tpu_torch.pipeline.driver import BundleAdjustmentPipeline
 
@@ -48,6 +53,9 @@ def _run(pipe, ds, frames):
 CASES = {
     "default_dense": (0.05, dict(ba_layout="dense_landmark"), 0.06),
     "keyframes_local_ba": (0.06, dict(kf_max_interval=3, local_ba=True), 0.2),
+    # both sides one shard: the JAX pipeline on a 1-device mesh, the port
+    # with no process group (the sharded engine's K5 route on the card)
+    "sharded_global_ba": (0.05, dict(global_ba_mode="sharded"), 0.06),
 }
 
 
@@ -58,9 +66,16 @@ def test_pipeline_matches_jax(case):
     base = dict(init_type="gtdepth", estimation="ba", n_features=200, n_levels=3,
                 local_ba=False, final_ba_outer=1, final_ba_iters=10)
     base.update(extra)
-    ref = _run(JaxPipeline(JaxConfig(track_batch=1, **base), K4, 160, 120), ds, frames)
-    got = _run(BundleAdjustmentPipeline(PipelineConfig(**base), K4, 160, 120,
-                                        device="cpu"), ds, frames)
+    jax_pipe = JaxPipeline(JaxConfig(track_batch=1, **base), K4, 160, 120)
+    if base.get("global_ba_mode") == "sharded":
+        jax_pipe.global_ba_mesh = Mesh(np.array(jax.devices()[:1]), ("shard",))
+    ref = _run(jax_pipe, ds, frames)
+    pipe = BundleAdjustmentPipeline(PipelineConfig(**base), K4, 160, 120, device="cpu")
+    sharded_calls = []
+    solve_sharded = pipe._solve_ba_sharded
+    pipe._solve_ba_sharded = lambda *a: sharded_calls.append(a) or solve_sharded(*a)
+    got = _run(pipe, ds, frames)
+    assert bool(sharded_calls) == (base.get("global_ba_mode") == "sharded")
     assert got[0] == ref[0]
     assert got[1] == ref[1]
     assert abs(got[2] - ref[2]) <= max(0.02 * ref[2], 2), (got[2], ref[2])
@@ -70,7 +85,9 @@ def test_pipeline_matches_jax(case):
         assert "keyframe" in got[0]
 
 
-def test_cli_writes_outputs(tmp_path):
+def _cli_run(tmp_path, *flags):
+    """The port's CLI on 6 rendered frames at 160x120 on the CPU; returns
+    (results, output prefix)."""
     frames, _, K4 = _frames(6, 0.06)
     data = tmp_path / "seq"
     write_tum_format(str(data), frames)
@@ -80,29 +97,43 @@ def test_cli_writes_outputs(tmp_path):
     out = tmp_path / "out"
     res = cli.main(["--dataset-name", "synthetic", "--dataset-path", str(data),
                     "--output-path", str(out), "--frames", "6", "--trajectory",
-                    "--n-features", "200", "--n-levels", "3", "--device", "cpu"])
+                    "--n-features", "200", "--n-levels", "3", "--device", "cpu",
+                    *flags])
     prefix = out / "synthetic_gtdepth_ba_globalba_f6"
     for suffix in ("_estimatedPoses.txt", "_mesh.off", "_results.json"):
         assert os.path.exists(str(prefix) + suffix), suffix
+    return res, prefix
+
+
+def test_cli_writes_outputs(tmp_path):
+    res, prefix = _cli_run(tmp_path)
     assert res["frames"] == 6 and res["ate_rmse"] < 0.06
     lines = [l for l in open(str(prefix) + "_estimatedPoses.txt") if not l.startswith("#")]
     assert len(lines) == 6 and len(lines[0].split()) == 8
 
 
+def test_cli_sharded_global_ba_writes_outputs(tmp_path):
+    """`--global-ba sharded` runs (one shard: no process group) and writes
+    the three output files."""
+    res, _ = _cli_run(tmp_path, "--global-ba", "sharded")
+    assert res["frames"] == 6 and res["ate_rmse"] < 0.06
+
+
 @pytest.mark.parametrize("field,value", [
     ("init_type", "standard"), ("estimation", "pnp"),
     ("estimation", "essential_or_homography"), ("global_ba_mode", "windowed"),
-    ("global_ba_mode", "sharded"), ("ba_solver", "pcg"), ("depth_landmarks", True)])
+    ("ba_solver", "pcg"), ("depth_landmarks", True)])
 def test_unported_modes_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BundleAdjustmentPipeline(PipelineConfig(**{field: value}),
-                                 np.array([150.0, 150.0, 80.0, 60.0]), 160, 120)
+                                 np.array([150.0, 150.0, 80.0, 60.0]), 160, 120,
+                                 device="cpu")
 
 
 @pytest.mark.parametrize("flags", [["--predetect"], ["--reconstruction-error", "gt.ply"],
                                    ["--display-pointcloud"], ["--faces-type", "poisson"],
                                    ["--init-type", "standard"], ["--estimation", "pnp"],
-                                   ["--global-ba", "sharded"], ["--ba-solver", "pcg"],
+                                   ["--global-ba", "windowed"], ["--ba-solver", "pcg"],
                                    ["--depth-landmarks"]])
 def test_unported_cli_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -127,3 +158,19 @@ def test_cuda_device_without_card_raises():
     with pytest.raises(RuntimeError, match="cuda"):
         BundleAdjustmentPipeline(PipelineConfig(), np.array([150.0, 150.0, 80.0, 60.0]),
                                  160, 120, device="cuda")
+
+
+def test_default_device_is_the_card():
+    """With no device the pipeline, densify_problem and from_reference go to
+    the card: without one they raise, they do not fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        BundleAdjustmentPipeline(PipelineConfig(), np.array([150.0, 150.0, 80.0, 60.0]),
+                                 160, 120)
+    z = np.zeros(0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        densify_problem(np.ones(4), z.astype(int), z.astype(int), np.zeros((0, 2)),
+                        z, z.astype(bool), np.zeros(1, bool), 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        from_reference(JaxFeatures(*[np.zeros(1)] * len(JaxFeatures._fields)))

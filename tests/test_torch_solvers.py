@@ -54,7 +54,7 @@ def test_dense_solve_matches_jax(scene, robust):
     cfg = jl.LMConfig(max_iters=15, robust=robust)
     ref = jd.dense_ba_solve(dense, jnp.asarray(sc.extr_init),
                             jnp.asarray(sc.points_init), cfg)
-    got = td.dense_ba_solve(interop.from_reference(dense), T(sc.extr_init),
+    got = td.dense_ba_solve(interop.from_reference(dense, device="cpu"), T(sc.extr_init),
                             T(sc.points_init), interop.from_reference(cfg))
     _check_solve(got, ref)
 
@@ -64,7 +64,7 @@ def test_flat_solve_matches_jax(scene):
     cfg = jl.LMConfig(max_iters=15)
     ref = jl.ba_solve(_flat(sc, cf), jnp.asarray(sc.extr_init),
                       jnp.asarray(sc.points_init), cfg)
-    got = tl.ba_solve(interop.from_reference(_flat(sc, cf)), T(sc.extr_init),
+    got = tl.ba_solve(interop.from_reference(_flat(sc, cf), device="cpu"), T(sc.extr_init),
                       T(sc.points_init), interop.from_reference(cfg))
     _check_solve(got, ref)
 
@@ -75,7 +75,7 @@ def test_prune_outliers_matches_jax(scene):
     uv[::17] += 25.0  # gross outliers
     prob = _flat(sc, cf)._replace(uv=jnp.asarray(uv))
     ref = jr.prune_outliers_cams(prob, jnp.asarray(sc.extr_gt), jnp.asarray(sc.points_gt))
-    got = tr.prune_outliers_cams(interop.from_reference(prob), T(sc.extr_gt),
+    got = tr.prune_outliers_cams(interop.from_reference(prob, device="cpu"), T(sc.extr_gt),
                                  T(sc.points_gt))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert (~got.numpy()).sum() >= len(uv[::17])
@@ -118,5 +118,5 @@ def test_motion_only_matches_jax(rng, robust):
 def test_pcg_not_ported(scene):
     sc, cf = scene
     with pytest.raises(NotImplementedError, match="PCG"):
-        tl.ba_solve(interop.from_reference(_flat(sc, cf)), T(sc.extr_init),
+        tl.ba_solve(interop.from_reference(_flat(sc, cf), device="cpu"), T(sc.extr_init),
                     T(sc.points_init), tl.LMConfig(solver="pcg"))

@@ -58,3 +58,37 @@ def assert_blocks_close(name, got, ref, rtol=2e-4, atol=2e-3):
     """assert_close with the tolerance of each block of `ref` scaled by that
     block's magnitude (see block_scale)."""
     assert_close(got, ref, rtol=rtol, atol=atol, scale=block_scale(name, ref))
+
+
+def sharded_solve_rank(rank, world_size, init_file, scene, cam_fixed, n_iters,
+                       out_dir):
+    """One gloo rank of the port's sharded dense solve on the CPU (the
+    target of torch.multiprocessing.spawn): shards `scene` (a dict of the
+    numpy fields of a SyntheticScene) round-robin over
+    `world_size` ranks, solves with `n_iters` LM iterations and writes this
+    rank's cameras, gathered points and costs to out_dir/rank<r>.npz."""
+    import os
+
+    from bundleadjustment_tpu_torch.parallel import multihost
+    from bundleadjustment_tpu_torch.parallel.sharded_dense_ba import (
+        gather_points,
+        shard_dense_problem,
+        sharded_dense_ba_solve,
+    )
+    from bundleadjustment_tpu_torch.solvers.lm import LMConfig
+
+    multihost.init_process_group(rank, world_size, init_file, device="cpu")
+    try:
+        prob, pts, shard_of, local_of = shard_dense_problem(
+            scene["K4"], scene["cam_idx"], scene["pt_idx"], scene["uv"],
+            scene["sigma2"], scene["valid"], cam_fixed, scene["points_init"],
+            world_size, rank, device="cpu")
+        group = multihost.default_group()
+        cams, pts, info = sharded_dense_ba_solve(
+            prob, torch.from_numpy(scene["extr_init"]), pts,
+            LMConfig(max_iters=n_iters), group)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), cams=cams.numpy(),
+                 points=gather_points(pts, shard_of, local_of, group),
+                 cost0=float(info["cost0"]), cost=float(info["cost"]))
+    finally:
+        multihost.destroy_process_group()
