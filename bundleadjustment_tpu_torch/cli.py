@@ -11,9 +11,12 @@ torch.distributed process group when the caller has initialised one
 (`parallel/multihost.py`), else as one shard. Writes the
 TUM trajectory (`--trajectory`), the COFF mesh and `<prefix>_results.json`.
 
+`--init-type standard` (two-view E/H bootstrap, no depth) and `--estimation
+pnp` / `essential_or_homography` are the monocular configurations; `--seed`
+seeds their RANSAC sampler.
+
 Flags of modes that are not ported raise NotImplementedError naming the
-ROADMAP item that ports them: --init-type standard, --estimation pnp /
-essential_or_homography, --global-ba windowed, --ba-solver pcg,
+ROADMAP item that ports them: --global-ba windowed, --ba-solver pcg,
 --depth-landmarks, --predetect, --reconstruction-error, --faces-type
 poisson, --display-pointcloud. --no-warmup, --matcher, --no-fused-tracking
 and --track-batch are accepted and change nothing (their --help says so):

@@ -1,7 +1,7 @@
 """Carry state from the JAX reference package into the port.
 
 `from_reference(obj, device)` turns one of the JAX package's NamedTuples
-(problems, features, configs), with array fields as JAX or numpy arrays,
+(problems, features, configs, two-view results), with array fields as JAX or numpy arrays,
 into the port's dataclass on `device`, so both packages can compute on
 identical inputs. It dispatches on the class name and never imports jax:
 array fields are read through `numpy.asarray`.
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from bundleadjustment_tpu_torch.device import resolve_device
+from bundleadjustment_tpu_torch.geometry.epipolar import TwoViewResult
 from bundleadjustment_tpu_torch.ops.features import FeatureConfig, Features
 from bundleadjustment_tpu_torch.solvers.dense_ba import _CM, DenseBAProblem
 from bundleadjustment_tpu_torch.solvers.lm import LMConfig, MotionOnlyConfig
@@ -26,7 +27,8 @@ from bundleadjustment_tpu_torch.solvers.residuals import BAProblem
 
 _INT64_FIELDS = {"BAProblem": ("cam_idx", "pt_idx")}
 _TENSORS = {"DenseBAProblem": DenseBAProblem, "_CM": _CM,
-            "BAProblem": BAProblem, "Features": Features}
+            "BAProblem": BAProblem, "Features": Features,
+            "TwoViewResult": TwoViewResult}
 _CONFIGS = {"FeatureConfig": FeatureConfig, "LMConfig": LMConfig,
             "MotionOnlyConfig": MotionOnlyConfig}
 

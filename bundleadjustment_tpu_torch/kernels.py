@@ -64,12 +64,16 @@ SIGNATURES = {
         # stream
         "schur_prepare": [P] * 6 + [I32] * 3 + [P] * 5,
     },
+    "chol_solve": {
+        # S, b, N, work, x, stream
+        "chol_solve": [P, P, I32, P, P, P],
+    },
 }
 
 # launches per kernel since the last reset (see module docstring)
 LAUNCHES = {"hamming_top2": 0, "dense_eval_assemble": 0,
             "dense_eval_assemble_bs": 0, "schur_prepare_s": 0,
-            "schur_qqt_partial": 0, "schur_prepare": 0}
+            "schur_qqt_partial": 0, "schur_prepare": 0, "chol_solve": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,8 +1,10 @@
 """Tracking / mapping pipeline driver on tensors.
 
-Port of `bundleadjustment_tpu/pipeline/driver.py`, default path only:
-gtdepth initialization, `estimation="ba"` tracking with the guided
-local-map second pass, keyframe culling / triangulation / covisibility /
+Port of `bundleadjustment_tpu/pipeline/driver.py`: gtdepth or standard
+(two-view E/H, `geometry/epipolar.py`) initialization, tracking by
+`estimation="ba"` or `"pnp"` (motion-only BA, robust or not, with the guided
+local-map second pass) or `"essential_or_homography"` (two-view pose with
+the constant-velocity scale), keyframe culling / triangulation / covisibility /
 neighbourhood search and fusion, local or global BA (`global_ba_mode=
 "single"`, or `"sharded"` over torch.distributed), and `finalize` (the
 3 x 100 global BA plus two rounds of trajectory refinement), with the native C++ map store (`SceneMap`, copied
@@ -20,7 +22,10 @@ Differences from the JAX driver, none of which changes a result:
   `lax.scan` microbatch only amortised TPU dispatch (its tests show it equals
   the per-frame path); likewise `fused_tracking` and `matcher` only chose how
   the JAX package dispatched the same computation;
-- no power-of-two shape buckets: they existed to reuse jit compilations.
+- no power-of-two shape buckets: they existed to reuse jit compilations
+  (the two-view estimators get the real pairs and an all-true mask);
+- the RANSAC samples come from a CPU `torch.Generator` seeded with
+  `config.seed`, not from a JAX key: other samples, the same distribution.
 
 Modes off this path raise NotImplementedError naming the ROADMAP item that
 ports them.
@@ -35,6 +40,10 @@ import torch
 
 from bundleadjustment_tpu_torch.device import resolve_device
 from bundleadjustment_tpu_torch.geometry import np_se3
+from bundleadjustment_tpu_torch.geometry.epipolar import (
+    recover_pose_two_view,
+    sample_indices,
+)
 from bundleadjustment_tpu_torch.geometry.triangulation import triangulate_gated
 from bundleadjustment_tpu_torch.mapstate.scene import SceneMap
 from bundleadjustment_tpu_torch.ops.features import FeatureConfig, detect_and_describe
@@ -136,10 +145,10 @@ def _not_ported(what, item):
 
 def check_config(cfg: PipelineConfig):
     """Raise NotImplementedError for every mode off the ported path."""
-    if cfg.init_type != "gtdepth":
-        _not_ported(f"init_type={cfg.init_type!r}", "standard init / epipolar.py")
-    if cfg.estimation != "ba":
-        _not_ported(f"estimation={cfg.estimation!r}", "PnP and E/H tracking")
+    if cfg.init_type not in ("gtdepth", "standard"):
+        raise ValueError(f"unknown init_type {cfg.init_type!r}")
+    if cfg.estimation not in ("ba", "pnp", "essential_or_homography"):
+        raise ValueError(f"unknown estimation {cfg.estimation!r}")
     if cfg.global_ba_mode == "windowed":
         _not_ported("global_ba_mode='windowed'",
                     "the windowed mode over parallel/windows.py, posegraph.py")
@@ -169,6 +178,10 @@ class BundleAdjustmentPipeline:
                                       n_levels=config.n_levels,
                                       scale_factor=config.scale_factor,
                                       detector=config.detector)
+        # RANSAC sampler of the two-view estimators: on the CPU, so a run on
+        # the card and a run on the CPU draw the same samples
+        self._gen = torch.Generator(device="cpu")
+        self._gen.manual_seed(config.seed)
         self.initialized = False
         self.ref_slot = None
         self.ref_feats: FrameFeatures | None = None
@@ -180,6 +193,9 @@ class BundleAdjustmentPipeline:
         self.trajectory: list[TrackRecord] = []
         self.stats = {"frames": 0, "keyframes": 0, "tracking_failures": 0}
         self.timers = PhaseTimer()
+        # (observations, engine) of every BA solve, in order: "flat",
+        # "dense_landmark" or "sharded"
+        self.ba_solves: list[tuple[int, str]] = []
         self._prev_track = None  # (xyz [M,3], trackable [M], ids [M])
         self._last_kf_slot = None
         self._kf_ref_inliers = None
@@ -245,7 +261,8 @@ class BundleAdjustmentPipeline:
             ok = (idx >= 0) & self._t(okm) & (dist < cfg.assoc_max_dist)
             ok = ok & (torch.cumsum(ok.to(torch.int64), 0) <= cfg.max_track_obs)
             mcfg = MotionOnlyConfig(outer_iters=cfg.motion_outer,
-                                    inner_iters=cfg.motion_inner, robust=True)
+                                    inner_iters=cfg.motion_inner,
+                                    robust=cfg.estimation == "ba")
             rt, inl = motion_only_ba(
                 self.K4_dev, self._t(np.asarray(pred_extr, np.float32))[None],
                 self._t(xyz)[None], f.xy[safe][None], f.sigma2[safe][None],
@@ -287,6 +304,7 @@ class BundleAdjustmentPipeline:
             if layout == "auto":
                 layout = ("dense_landmark"
                           if n_obs >= self.cfg.ba_layout_auto_min_obs else "flat")
+            self.ba_solves.append((n_obs, layout))
             lm_cfg = LMConfig(max_iters=max_iters, solver=self.cfg.ba_solver)
             prob = self._flat_problem(snap)
             extr, points = self._t(snap.extr), self._t(snap.points)
@@ -333,6 +351,7 @@ class BundleAdjustmentPipeline:
         )
 
         with self.timers.phase("bundle_adjust"):
+            self.ba_solves.append((int(np.asarray(snap.valid).sum()), "sharded"))
             group = default_group()
             n_shards = 1 if group is None else torch.distributed.get_world_size(group)
             rank = 0 if group is None else torch.distributed.get_rank(group)
@@ -443,6 +462,77 @@ class BundleAdjustmentPipeline:
         m.refresh_frame_points(cur_slot)
         m.update_covisibility(cur_slot, self.cfg.covis_threshold)
         m.update_covisibility(ref, self.cfg.covis_threshold)
+        return True
+
+    def _two_view_samples(self, n, n_hyp):
+        """The minimal samples of one two-view estimate over n pairs:
+        (idx_e [n_hyp, 8], idx_h [n_hyp, 4]) from the pipeline's generator."""
+        valid = torch.ones(n, dtype=torch.bool)
+        return (sample_indices(self._gen, valid, n_hyp, 8),
+                sample_indices(self._gen, valid, n_hyp, 4))
+
+    def _two_view(self, uv1, uv2, n_hyp=256):
+        """`recover_pose_two_view` over matched pixel pairs (host arrays) on
+        the device; returns the TwoViewResult with host (numpy) fields."""
+        with self.timers.phase("two_view"):
+            idx_e, idx_h = self._two_view_samples(len(uv1), n_hyp)
+            res = recover_pose_two_view(
+                None, self._t(uv1, torch.float32), self._t(uv2, torch.float32),
+                torch.ones(len(uv1), dtype=torch.bool, device=self.device),
+                self.K4_dev, n_hyp=n_hyp, idx_e=idx_e.to(self.device),
+                idx_h=idx_h.to(self.device))
+            return type(res)(**{k: v.cpu().numpy() for k, v in vars(res).items()})
+
+    def _init_standard(self, cur_slot, cur_feats, matches, dists):
+        """Two-view E/H bootstrap: the reference frame is the identity, the
+        current frame takes the recovered relative pose (unit baseline), the
+        inlier matches are triangulated, then two global BAs."""
+        m = self.map
+        ref = self.ref_slot
+        rf = self.ref_feats
+        pair_ref = np.nonzero(matches >= 0)[0]
+        pair_cur = matches[pair_ref]
+        n = len(pair_ref)
+        if n < self.cfg.min_init_matches:
+            return False
+        uv1 = rf.xy[pair_ref]
+        uv2 = cur_feats.xy[pair_cur]
+        res = self._two_view(uv1, uv2)
+        # acceptance (more than 100 E inliers / a surviving H decomposition)
+        # plus a relative-support guard for small n
+        if not bool(res.ok) or int(res.n_inliers) < max(50, int(0.3 * n)):
+            return False
+        rel = res.rt6.astype(np.float64)
+        m.set_pose(cur_slot, rel)  # ref is the identity: extr_cur = rel
+
+        # triangulate the inlier matches (no baseline check at bootstrap)
+        pts, ok = self._triangulate(m.kf_pose[ref], rel, uv1, uv2,
+                                    rf.sigma2[pair_ref],
+                                    cur_feats.sigma2[pair_cur], res.inliers)
+        cur_img = getattr(self, "_cur_image", None)
+        cols = (sample_color_bilinear(cur_img, uv2) if cur_img is not None
+                else None)
+        created = np.nonzero(ok)[0]
+        for i in created:
+            pt = m.add_point(pts[i], desc=cur_feats.desc[pair_cur[i]],
+                             first_kf=self.kf_counter)
+            m.add_observation(pt, ref, int(pair_ref[i]))
+            m.add_observation(pt, cur_slot, int(pair_cur[i]))
+            if cols is not None:
+                m.pt_color[pt] = cols[i]
+        if len(created) < 50:
+            return False
+
+        m.set_keyframe(ref)
+        m.set_keyframe(cur_slot)
+        self.kf_counter += 2
+        m.refresh_frame_points(cur_slot)
+        m.update_covisibility(cur_slot, self.cfg.covis_threshold)
+        m.update_covisibility(ref, self.cfg.covis_threshold)
+        # full BA over the two views; two rounds with chi2 pruning between
+        # them so a noisy H/E decomposition seed converges
+        self.global_ba(max(self.cfg.kf_ba_iters, 15))
+        self.global_ba(max(self.cfg.kf_ba_iters, 15))
         return True
 
     # ------------------------------------------------------------------
@@ -738,13 +828,64 @@ class BundleAdjustmentPipeline:
         vel = np_se3.rt6_compose(self.last_extr, np_se3.rt6_inverse(self.prev_extr))
         return np_se3.rt6_compose(vel, self.last_extr)
 
-    def _estimate_pose(self, cur_feats, assoc_pt, assoc_kp, pred_extr):
-        """Robust motion-only BA over the 2D-3D associations."""
-        if len(assoc_pt) < self.cfg.min_track_points:
-            return pred_extr, np.zeros(len(assoc_pt), bool)
-        return self.motion_only(pred_extr, self.map.pt_pos[assoc_pt],
-                                cur_feats.xy[assoc_kp],
-                                cur_feats.sigma2[assoc_kp])
+    def _reproj_gate(self, extr, assoc_pt, assoc_kp, feats):
+        """Cheirality + chi2 < 5.991 acceptance of 2D-3D associations against
+        a pose estimate, applied before observation writes."""
+        if len(assoc_pt) == 0:
+            return np.zeros(0, bool)
+        X = self.map.pt_pos[assoc_pt].astype(np.float64)
+        R = np_se3.aa_to_R(extr[:3])
+        xc = X @ R.T + extr[3:]
+        z = xc[:, 2]
+        zs = np.where(np.abs(z) < 1e-9, 1e-9, z)
+        K = self.K4
+        u = K[0] * xc[:, 0] / zs + K[2]
+        v = K[1] * xc[:, 1] / zs + K[3]
+        uv = feats.xy[assoc_kp]
+        sig2 = np.maximum(feats.sigma2[assoc_kp], 1e-12)
+        chi2 = ((u - uv[:, 0]) ** 2 + (v - uv[:, 1]) ** 2) / sig2
+        return (z > 0) & (chi2 < 5.991)
+
+    def _pnp_guard(self, extr, inl, pred_extr):
+        """estimation="pnp": a translation jump of pnp_translation_guard or
+        more from the prediction keeps the prediction, with no inliers."""
+        if (self.cfg.estimation == "pnp" and np.linalg.norm(
+                extr[3:] - pred_extr[3:]) >= self.cfg.pnp_translation_guard):
+            return pred_extr, np.zeros(len(inl), bool)
+        return extr, inl
+
+    def _estimate_pose(self, cur_feats, assoc_pt, assoc_kp, pred_extr, matches):
+        """Dispatch on cfg.estimation: motion-only BA over the 2D-3D
+        associations ("ba" robust, "pnp" plain with the translation guard),
+        or the two-view pose from the last frame's matches."""
+        cfg = self.cfg
+        none = np.zeros(len(assoc_pt), bool)
+        if cfg.estimation in ("ba", "pnp"):
+            if len(assoc_pt) < cfg.min_track_points:
+                return pred_extr, none
+            extr, inl = self.motion_only(
+                pred_extr, self.map.pt_pos[assoc_pt], cur_feats.xy[assoc_kp],
+                cur_feats.sigma2[assoc_kp], robust=cfg.estimation == "ba")
+            return self._pnp_guard(extr, inl, pred_extr)
+        lf = self.last_feats
+        pair_last = np.nonzero(matches >= 0)[0]
+        if len(pair_last) < 30:
+            return pred_extr, none
+        res = self._two_view(lf.xy[pair_last], cur_feats.xy[matches[pair_last]])
+        if not bool(res.ok):
+            # recovery failed (E-path <= 100 inliers / empty H decomposition):
+            # keep the constant-velocity prediction, write no observations
+            return pred_extr, none
+        rel = res.rt6.astype(np.float64)
+        # scale the unit translation with the constant-velocity prior
+        # (monocular two-view scale is unobservable)
+        pred_rel = np_se3.rt6_compose(pred_extr, np_se3.rt6_inverse(self.last_extr))
+        scale = np.linalg.norm(pred_rel[3:])
+        rel[3:] *= scale if scale > 1e-9 else 1.0
+        extr = np_se3.rt6_compose(rel, self.last_extr)
+        # gate observation writes with the chi2 reprojection test against
+        # the recovered pose: ungated writes poison the map
+        return extr, self._reproj_gate(extr, assoc_pt, assoc_kp, cur_feats)
 
     def process_frame(self, frame):
         """Process one FrameData. Returns a status string."""
@@ -752,7 +893,8 @@ class BundleAdjustmentPipeline:
         m = self.map
         prev = self.last_feats if self.initialized else self.ref_feats
         fused_rt = fused_inl = assoc_ok = pred_extr = None
-        if self.initialized and self._prev_track is not None:
+        if (self.initialized and cfg.estimation in ("ba", "pnp")
+                and self._prev_track is not None):
             pred_extr = self._predict_extr()
             feats, matches, dists, assoc_ok, fused_rt, fused_inl = (
                 self._track_fused(frame.gray, prev, pred_extr))
@@ -777,7 +919,11 @@ class BundleAdjustmentPipeline:
             if int((matches >= 0).sum()) <= cfg.min_init_matches:
                 m.erase_frame(slot)
                 return "await-init"
-            if self._init_gtdepth(slot, feats, self._ref_depth, matches, dists):
+            if cfg.init_type == "gtdepth":
+                ok = self._init_gtdepth(slot, feats, self._ref_depth, matches, dists)
+            else:
+                ok = self._init_standard(slot, feats, matches, dists)
+            if ok:
                 self.initialized = True
                 self._last_kf_slot = slot
                 self.last_slot = slot
@@ -831,16 +977,18 @@ class BundleAdjustmentPipeline:
             if len(assoc_pt) < cfg.min_track_points:
                 extr, inl = pred_extr, np.zeros(len(assoc_pt), bool)
             else:
-                extr, inl = fused_rt, fused_inl[ok_idx]
+                extr, inl = self._pnp_guard(fused_rt, fused_inl[ok_idx], pred_extr)
         else:
-            extr, inl = self._estimate_pose(feats, assoc_pt, assoc_kp, pred_extr)
+            extr, inl = self._estimate_pose(feats, assoc_pt, assoc_kp, pred_extr,
+                                            matches)
 
         # guided local-map second pass, then re-estimate
-        if cfg.track_local_map:
+        if cfg.track_local_map and cfg.estimation in ("ba", "pnp"):
             assoc_pt2, assoc_kp2 = self._track_local_map(feats, extr, assoc_pt,
                                                          assoc_kp)
             if len(assoc_pt2) > len(assoc_pt):
-                extr2, inl2 = self._estimate_pose(feats, assoc_pt2, assoc_kp2, extr)
+                extr2, inl2 = self._estimate_pose(feats, assoc_pt2, assoc_kp2,
+                                                  extr, matches)
                 if inl2.sum() >= inl.sum():
                     extr, inl = extr2, inl2
                     assoc_pt, assoc_kp = assoc_pt2, assoc_kp2

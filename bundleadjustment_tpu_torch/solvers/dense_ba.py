@@ -17,8 +17,10 @@ One LM iteration (`dense_ba_solve`):
    folds it in (k, i) order, which changes nothing but the rounding);
    (c) O > 64, either mode: kernel D (`schur_prepare`), Pf by `index_add_`
    and Q Q^T by a plain matrix product, all-reduced, then U as in (b);
-2. `cholesky_ex` + `cholesky_solve` on S (outside any kernel, as the JAX
-   package solves it with XLA); a non-PD S gives a NaN step;
+2. the camera system S x = b: `ops.chol_solve`, by default `cholesky_ex` +
+   `cholesky_solve` (outside any kernel, as the JAX package solves it with
+   XLA; a non-PD S gives a NaN step), or kernel E (`solvers/chol.py`) with
+   `dense_kernels.KERNEL_OPS_CHOL`;
 3. kernel B with back-substitution (`eval_assemble_bs`): the trial landmarks
    Xt - V^-1 (g_p + W^T dc) and the eval + block assembly at the trial point;
 4. accept / reject with `torch.where`: no host sync inside the loop.
@@ -44,7 +46,6 @@ from bundleadjustment_tpu_torch.solvers.lm import (
     check_solver,
 )
 from bundleadjustment_tpu_torch.solvers.residuals import HUBER_DELTA
-from bundleadjustment_tpu_torch.solvers.schur import cholesky_solve_nan
 
 
 @dataclass
@@ -285,7 +286,7 @@ def _solve_unfolded(dk, route, lam, Vu, g_p, W18, cm, red, reduce):
                                                cm.cam_t, K)
         S_qqt = qqt(pf_index_add(G, cm.cam_t, K), K)
     S, b = damped_system(lam, red, cm.cam_fixed, reduce(S_qqt), reduce(red6))
-    return cholesky_solve_nan(S, b).reshape(6, K).T, vinv6
+    return dk.chol_solve(S, b).reshape(6, K).T, vinv6
 
 
 def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
@@ -295,7 +296,7 @@ def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
     cam_rt6 [K, 6], points [L, 3] on the problem's device. Returns
     (cam_rt6', points', info) with info's values as device tensors. `ops`
     (default `dense_kernels.KERNEL_OPS`, which dispatch on the device) picks
-    the implementations of the kernels.
+    the implementations of the kernels and of the camera-system solve.
 
     `reduce` is the cross-shard reduction hook (the reference's `psum`): a
     function that sums a tensor over every landmark shard and returns it.
@@ -337,7 +338,7 @@ def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
             S, _zv, vinv6, b = dk.schur_prepare_s(
                 lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K, red, cm.cam_fixed)
             # S and b are in (i, k) order: the solution comes back as [6, K]
-            dc = cholesky_solve_nan(S, b).reshape(6, K).T
+            dc = dk.chol_solve(S, b).reshape(6, K).T
         else:
             dc, vinv6 = _solve_unfolded(dk, route, lam, Vu, g_p, W18, cm, red,
                                         reduce)

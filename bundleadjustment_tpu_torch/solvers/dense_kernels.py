@@ -35,6 +35,8 @@ import torch
 from collections import namedtuple
 
 from bundleadjustment_tpu_torch import kernels
+from bundleadjustment_tpu_torch.solvers.chol import chol_solve, chol_solve_plain
+from bundleadjustment_tpu_torch.solvers.schur import cholesky_solve_nan
 
 N_RED = 27  # 21 upper-triangle U rows + 6 gradient rows per camera
 
@@ -370,11 +372,18 @@ def schur_prepare(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):
 
 # The per-iteration functions of the dense LM solve. `dense_ba_solve` takes
 # the dispatching wrappers by default; a comparison on the card can pass
-# PLAIN_OPS to run the same solve through the plain versions.
+# PLAIN_OPS to run the same solve through the plain versions. The camera
+# system S x = b goes to the library call (`cholesky_solve_nan`) in both, as
+# the reference's `solve_fused` keeps XLA's Cholesky; the *_CHOL tables
+# differ in that field only and solve it with kernel E (`chol.chol_solve`)
+# or its plain version.
 DenseOps = namedtuple("DenseOps", "eval_assemble eval_assemble_bs "
-                      "schur_prepare_s schur_qqt_partial schur_prepare")
+                      "schur_prepare_s schur_qqt_partial schur_prepare "
+                      "chol_solve")
 KERNEL_OPS = DenseOps(eval_assemble, eval_assemble_bs, schur_prepare_s,
-                      schur_qqt_partial, schur_prepare)
+                      schur_qqt_partial, schur_prepare, cholesky_solve_nan)
 PLAIN_OPS = DenseOps(eval_assemble_plain, eval_assemble_bs_plain,
                      schur_prepare_s_plain, schur_qqt_partial_plain,
-                     schur_prepare_plain)
+                     schur_prepare_plain, cholesky_solve_nan)
+KERNEL_OPS_CHOL = KERNEL_OPS._replace(chol_solve=chol_solve)
+PLAIN_OPS_CHOL = PLAIN_OPS._replace(chol_solve=chol_solve_plain)

@@ -13,7 +13,10 @@ script exits non-zero without printing the final line:
    prints the build seconds;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the main paths give it (kernel A bit-identical;
-   B, C, K5 and D to the stated tolerances), each timed as device time per
+   B, C, K5 and D to the stated tolerances; E, the blocked Cholesky solve,
+   on the S and b that the Schur step produces at each shape, against its
+   plain version and float64 numpy, beside the library call
+   `cholesky_ex` + `cholesky_solve`), each timed as device time per
    call ("ms", torch.profiler kernel durations, or CUDA events where the
    profiler delivers no kernel records: "ms_source" says which) and as
    CUDA-event time per back-to-back call ("call_ms", which includes the
@@ -34,18 +37,35 @@ script exits non-zero without printing the final line:
 5. large-O solve: the config-7-shaped problem through `dense_ba_solve`
    (O = 72: route (c), kernel D + Pf + Q Q^T), 10 LM iterations, kernels
    against plain versions with the criteria of phase 4;
-6. pipeline: writes a TUM-format rendered sequence (640x480, 40 frames) and
+6. Cholesky-solve path: the 64 cams / 10k landmarks / O = 16 problem, 10 LM
+   iterations with the camera system solved by kernel E (KERNEL_OPS_CHOL)
+   against the plain versions (PLAIN_OPS_CHOL) with the criteria of phase
+   4, and against the same solve through the library call (KERNEL_OPS);
+   milliseconds per LM iteration of the E and of the library variant;
+7. two-view estimators: the batched SVDs of `geometry/epipolar.py` (256
+   8-point and 4-point systems, the [C, N, 4, 4] triangulations of 4 and 8
+   candidate motions) and one whole `recover_pose_two_view`, timed on the
+   card and on the CPU at 800 pairs, and the two held against each other;
+8. pipeline: writes a TUM-format rendered sequence (640x480, 40 frames) and
    runs the port's CLI on it with default flags (gtdepth, ba, local BA,
    3x100 final BA, 1000 features, 8 levels); checks ATE and the output
    files; then times the kernels at the pipeline's own final-BA shape;
-7. sharded pipeline: the same sequence through the CLI with `--global-ba
+9. sharded pipeline: the same sequence through the CLI with `--global-ba
    sharded`, inside an NCCL process group of world size 1 (file rendezvous
    in the temporary directory); ATE < 0.05 m and within 0.001 m of phase 6,
    and the solve's all-reduces and point gather ran as NCCL collectives;
-8. per-path launch check: every kernel was launched by the run of the path
-   that carries it (A, B, B with back-substitution and C: phase 6; K5:
-   phase 7, whose local BAs also launch B and C; D: phase 5). Each count is
-   reset just before that run and read just after it.
+10. monocular pipelines through the CLI at the same width: `--estimation
+   pnp` and `--estimation essential_or_homography` on 20 frames of that
+   sequence, and `--init-type standard` (two-view E/H bootstrap, no depth)
+   on a 20-frame sequence rendered with a baseline that initialises; the
+   standard run once as a user would start it (the BA engine follows the
+   observation count and is reported) and once with `--ba-layout
+   dense_landmark`, so that kernels B and C solve a monocular map;
+11. per-path launch check: every kernel was launched by the run of the path
+   that carries it (A, B, B with back-substitution and C: phase 8; K5:
+   phase 9, whose local BAs also launch B and C; D: phase 5; E: phase 6, at
+   least 10 times; A in every monocular run, B and C in the dense standard
+   run). Each count is reset just before that run and read just after it.
 
 Then a `{"kernels": [...]}` line and, last, `{"ok": true, "device": ...}`.
 Needs one CUDA device; exits non-zero without one.
@@ -82,11 +102,20 @@ KERNELS = {
     "schur_prepare": ("cuda", "bundleadjustment_tpu_torch/csrc/schur_prepare.cu",
                       "bundleadjustment_tpu/solvers/pallas_dense_eval.py:533",
                       "large_o_solve"),
+    "chol_solve": ("cuda", "bundleadjustment_tpu_torch/csrc/chol_solve.cu",
+                   "bundleadjustment_tpu/solvers/pallas_chol.py:204",
+                   "chol_solve_path"),
 }
 # what else each path's run must launch (the sharded pipeline's local BAs
 # and evals still go through B and C)
-ALSO_LAUNCHED = {"pipeline_sharded": ("dense_eval_assemble",
-                                      "dense_eval_assemble_bs", "schur_prepare_s")}
+_DENSE = ("dense_eval_assemble", "dense_eval_assemble_bs", "schur_prepare_s")
+ALSO_LAUNCHED = {"pipeline_sharded": _DENSE,
+                 "pipeline_pnp": ("hamming_top2",),
+                 "pipeline_essential_or_homography": ("hamming_top2",),
+                 "pipeline_standard": ("hamming_top2",),
+                 "pipeline_standard_dense": ("hamming_top2", *_DENSE)}
+# the least number of launches a path's run must show (default 1)
+MIN_LAUNCHES = {"chol_solve": 10}
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # float32 outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -95,7 +124,14 @@ RTOL, ATOL = 2e-4, 2e-3  # block outputs (float atomics reorder the sums)
 COST_RTOL = 1e-5
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """Print one JSON line; a phase line also says when ("t_s": seconds
+    since the script started)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -118,12 +154,15 @@ def cuda_time(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def device_time(fn, reps=10, tries=3):
+def device_time(fn, reps=10, tries=3, kernel=None):
     """(ms, source): mean milliseconds of device time per call of fn(), the
     durations of the CUDA kernels it launched from torch.profiler (host gaps
     excluded), source "profiler". A profiler session now and then delivers
-    no kernel records; after `tries` such sessions the time is taken with
-    CUDA events instead (cuda_time, source "cuda_events")."""
+    no kernel records, or not all of them: with `kernel` (a part of the
+    name of a kernel that fn launches once per call) a profile counts only
+    if it holds `reps` records of it. After `tries` profiles that do not
+    count the time is taken with CUDA events instead (cuda_time, source
+    "cuda_events")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -136,7 +175,8 @@ def device_time(fn, reps=10, tries=3):
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
         total = sum(e.device_time_total for e in kern) / 1e3 / reps
-        if total > 0.0:
+        whole = kernel is None or sum(e.count for e in kern if kernel in e.key) == reps
+        if total > 0.0 and whole:
             return total, "profiler"
     return cuda_time(fn), "cuda_events"
 
@@ -254,6 +294,67 @@ def prepare_bound(ins, outs, W18, L):
     return bound(nbytes(*ins, *outs), PREP_OPS * L + (G_OPS + WZ_OPS) * slots)
 
 
+def compare_chol(tag, S, b):
+    """Kernel E on one camera system S x = b: against its plain version and
+    against float64 `numpy.linalg.solve`, beside the library call
+    (`schur.cholesky_solve_nan`: `cholesky_ex` + `cholesky_solve`).
+
+    Errors are relative max errors against float64. On S = A A^T + N I the
+    bound is 1e-5; the LM systems are ill-conditioned ("eig_min", "eig_max":
+    S's extreme eigenvalues in float64; cameras without observations leave
+    eig_min at the 1e-8 jitter or, after float32 rounding, below zero), and
+    any float32 factorisation loses about eps * eig_max / eig_min there. So the stated bound is max(1e-5, 20 x the
+    library call's own error on the same system), for kernel against
+    float64 and for kernel against plain alike.
+
+    The bound_ms counts N^2 * 4 bytes (+ b and x) and N^3 / 3 + 2 N^2
+    operations; "chain_steps" is the length of the dependency chain, 3 N / 8
+    panel steps, which no byte or operation rate shortens."""
+    import numpy as np
+    import torch
+
+    from bundleadjustment_tpu_torch.solvers import chol
+    from bundleadjustment_tpu_torch.solvers.schur import cholesky_solve_nan
+
+    N = S.shape[0]
+    x_k = chol.chol_solve(S, b)
+    torch.cuda.synchronize()
+    x_p = chol.chol_solve_plain(S, b)
+    x_l = cholesky_solve_nan(S, b)
+    x64 = np.linalg.solve(S.double().cpu().numpy(), b.double().cpu().numpy())
+    eig = torch.linalg.eigvalsh(S.double())
+    rel = lambda x, ref: float(np.abs(x.double().cpu().numpy() - ref).max()
+                               / np.abs(ref).max())
+    err_k, err_p, err_l = rel(x_k, x64), rel(x_p, x64), rel(x_l, x64)
+    k_vs_p = rel(x_k, x_p.double().cpu().numpy())
+    limit = max(1e-5, 20.0 * err_l)
+    out = {"N": N, "eig_min": float(eig[0]), "eig_max": float(eig[-1]),
+           "rel_err_vs_float64": err_k,
+           "plain_rel_err_vs_float64": err_p, "library_rel_err_vs_float64": err_l,
+           "rel_err_vs_plain": k_vs_p, "rel_err_bound": limit,
+           "max_abs_err": max_abs(x_k, x_p), "chain_steps": 3 * ((N + 7) // 8)}
+    if not (err_k < limit and k_vs_p < limit and bool(torch.isfinite(x_k).all())):
+        raise AssertionError(f"{tag} E: kernel {err_k}, plain {err_p}, library "
+                             f"{err_l} against float64, kernel against plain "
+                             f"{k_vs_p}; bound {limit}")
+    lib_ms, lib_src = device_time(lambda: cholesky_solve_nan(S, b))
+    ms, src = device_time(lambda: chol.chol_solve(S, b), kernel="chol_solve_kernel")
+    # the plain version is a Python loop of ~170 small launches per panel
+    # (75k launches a call at N = 3600, 1.5 s of host time): a torch.profiler
+    # profile of it takes minutes, so it is timed with CUDA events alone,
+    # over few calls; its time is the host's, not the card's
+    plain_ms = cuda_time(lambda: chol.chol_solve_plain(S, b),
+                         reps=1 if N > 1000 else 3, warmup=1)
+    out.update({"ms": ms, "ms_source": src,
+                "call_ms": cuda_time(lambda: chol.chol_solve(S, b)),
+                "plain_ms": plain_ms, "plain_ms_source": "cuda_events",
+                "plain_call_ms": plain_ms})
+    out.update(bound(nbytes(S, b, x_k), N ** 3 / 3 + 2 * N ** 2))
+    out.update({"library_ms": lib_ms, "library_ms_source": lib_src,
+                "library_call_ms": cuda_time(lambda: cholesky_solve_nan(S, b))})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -362,20 +463,21 @@ def synthetic_dense(n_cams, n_pts, obs_per_pt, max_obs, device, copies=1,
 
 
 def compare_dense_kernels(prob, cams, pts, tag, names=None):
-    """Kernels B (seed, bs), C, K5 and D against their plain versions at one
-    shape (`names`: the kernels to check, default all). Returns {kernel:
+    """Kernels B (seed, bs), C, K5, D and E against their plain versions at
+    one shape (`names`: the kernels to check, default all). Returns {kernel:
     {"max_abs_err", "ms", "plain_ms", ..., "bound_ms", "bound_by",
-    "library_ms"}}; no single PyTorch call computes any of these functions,
-    so "library_ms" is None."""
+    "library_ms"}}; no single PyTorch call computes B, C, K5 or D, so their
+    "library_ms" is None; E's is `compare_chol`'s."""
     import torch
 
     from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat
     from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
-    from bundleadjustment_tpu_torch.solvers.dense_ba import _to_cm
+    from bundleadjustment_tpu_torch.solvers.dense_ba import _to_cm, schur_route
     from bundleadjustment_tpu_torch.solvers.schur import cholesky_solve_nan
 
     names = set(names or ("dense_eval_assemble", "dense_eval_assemble_bs",
-                          "schur_prepare_s", "schur_qqt_partial", "schur_prepare"))
+                          "schur_prepare_s", "schur_qqt_partial", "schur_prepare",
+                          "chol_solve"))
     cm = _to_cm(prob)
     O, L = cm.cam_t.shape
     K = cm.cam_fixed.shape[0]
@@ -406,7 +508,7 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
     lam = torch.tensor(1e-4, device=cams.device)
     c_args = (lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K, red, cm.cam_fixed)
     c_ins = (lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, red, cm.cam_fixed)
-    if names & {"schur_prepare_s", "dense_eval_assemble_bs"}:
+    if names & {"schur_prepare_s", "dense_eval_assemble_bs", "chol_solve"}:
         s_p = dk.schur_prepare_s_plain(*c_args)
     if "schur_prepare_s" in names:
         s_k = dk.schur_prepare_s(*c_args)
@@ -451,6 +553,18 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
                         lambda: dk.schur_prepare_plain(*p_args)),
             **prepare_bound(p_args[:6], d_k, W18, L), "library_ms": None}
 
+    if "chol_solve" in names:
+        # the system the solve of this shape hands to the Cholesky: kernel
+        # C's, or for O > 64 route (c)'s damped_system of D + Pf + Q Q^T
+        if schur_route(O) == "s":
+            S_e, _, _, b_e = dk.schur_prepare_s(*c_args)
+        else:
+            G, _, _, red6 = dk.schur_prepare(*p_args)
+            S_e, b_e = dk.damped_system(lam, red, cm.cam_fixed,
+                                        dk.qqt(dk.pf_index_add(G, cm.cam_t, K), K),
+                                        red6)
+        out["chol_solve"] = compare_chol(tag, S_e.contiguous(), b_e.contiguous())
+
     if "dense_eval_assemble_bs" in names:
         S, _zv, vinv6, b = s_p
         dc = cholesky_solve_nan(S, b).reshape(6, K).T
@@ -478,12 +592,13 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
 
 
 def phase_dense_kernels(device, results):
-    """B, C, K5 and D at the two solve shapes of the records, and at 600
+    """B, C, K5, D and E at the two solve shapes of the records, and at 600
     cameras (12 cameras x 50 copies, 3k landmarks), where kernel B's [K,27]
     table no longer fits its 48 KB of shared memory and the per-camera rows
     go to global atomics; D alone at 2,100 cameras (12 x 175), where its
     [6,K] table does not fit either. Each kernel's reported time is at
-    128c/100k/O=8, D's at the config-7 shape (phase_large_o_kernels)."""
+    128c/100k/O=8, D's at the config-7 shape (phase_large_o_kernels), E's at
+    64c/10k/O=16 (N = 384, the shape of its path)."""
     shapes = {}
     for tag, (nc, npt, opp, mo, copies, names) in {
             "64c_10k_O16": (64, 10_000, 8, 16, 1, None),
@@ -502,6 +617,9 @@ def phase_dense_kernels(device, results):
             **shapes["128c_100k_O8"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
             "shapes": mine}
+    results["chol_solve"].update({k: v for k, v in
+                                  shapes["64c_10k_O16"]["chol_solve"].items()
+                                  if k != "max_abs_err"})
 
 
 def track_dense(device, n_cams=71, n_pts=10_842, n_obs=156_774, n_all=500):
@@ -583,7 +701,7 @@ def phase_large_o_kernels(device, results):
     prob, cams, pts = track_dense(device)
     res = compare_dense_kernels(prob, cams, pts, "config7",
                                 ("schur_prepare_s", "schur_qqt_partial",
-                                 "schur_prepare"))
+                                 "schur_prepare", "chol_solve"))
     routes = {f"n_all_{n}": schur_step_routes(device, n) for n in N_ALL_SWEEP}
     emit({"phase": "kernel", "shape": "config7", "K": int(cams.shape[0]),
           "L": int(pts.shape[0]), "O": int(prob.cam_idx.shape[1]),
@@ -592,16 +710,17 @@ def phase_large_o_kernels(device, results):
     results["schur_prepare"] = {
         **res["schur_prepare"], "shapes": d_shapes,
         "max_abs_err": max(v["max_abs_err"] for v in d_shapes.values())}
-    for name in ("schur_prepare_s", "schur_qqt_partial"):
+    for name in ("schur_prepare_s", "schur_qqt_partial", "chol_solve"):
         results[name]["shapes"]["config7"] = res[name]
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                            res[name]["max_abs_err"])
 
 
-def solve_both_ways(phase, prob, cams, pts, extra):
+def solve_both_ways(phase, prob, cams, pts, extra, tables=("KERNEL_OPS", "PLAIN_OPS")):
     """10 LM iterations of `dense_ba_solve` through the kernels and through
-    the plain versions; cameras within 5e-4, final costs within rel 1e-3 and
-    a cost that decreases. Returns the launch counts of the kernel run."""
+    the plain versions (`tables`: the names of the two DenseOps tables);
+    cameras within 5e-4, final costs within rel 1e-3 and a cost that
+    decreases. Returns the launch counts of the kernel run."""
     import torch
 
     from bundleadjustment_tpu_torch import kernels
@@ -611,7 +730,7 @@ def solve_both_ways(phase, prob, cams, pts, extra):
 
     cfg = LMConfig(max_iters=10)
     out = {}
-    for label, ops in (("kernel", dk.KERNEL_OPS), ("plain", dk.PLAIN_OPS)):
+    for label, ops in zip(("kernel", "plain"), (getattr(dk, t) for t in tables)):
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -623,7 +742,7 @@ def solve_both_ways(phase, prob, cams, pts, extra):
     cp, _, cost_p, sp, _ = out["plain"]
     cam_err = max_abs(ck, cp)
     rel = abs(cost_k - cost_p) / abs(cost_p)
-    emit({"phase": phase, **extra, "iters": 10, "cost0": c0,
+    emit({"phase": phase, **extra, "ops": list(tables), "iters": 10, "cost0": c0,
           "cost_kernel": cost_k, "cost_plain": cost_p, "cost_rel_diff": rel,
           "cams_max_abs_diff": cam_err, "wall_s_kernel": sk, "wall_s_plain": sp,
           "launches": counts})
@@ -652,26 +771,173 @@ def phase_large_o_solve(device):
                             "O": O, "n_obs": int(prob.valid.sum())})
 
 
-def write_sequence(root, n_frames):
-    """Render the config-1-shaped sequence and write it in TUM format with an
-    intrinsics.json sidecar."""
+def lm_iteration_ms(prob, cams, pts, ops, short=10, long=30, tries=3):
+    """Milliseconds per LM iteration of `dense_ba_solve` with `ops`: the
+    host-clock time of a `long`-iteration solve less that of a `short` one
+    (each the best of `tries`, ended by a synchronise), over the difference
+    in iterations, so the seed eval and the set-up cancel."""
+    import torch
+
+    from bundleadjustment_tpu_torch.solvers.dense_ba import dense_ba_solve
+    from bundleadjustment_tpu_torch.solvers.lm import LMConfig
+
+    def best(iters):
+        times = []
+        for _ in range(tries + 1):  # the first is the warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dense_ba_solve(prob, cams, pts, LMConfig(max_iters=iters), ops=ops)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return min(times[1:])
+
+    return (best(long) - best(short)) / (long - short) * 1e3
+
+
+def phase_chol_solve_path(device):
+    """Kernel E's path: the 64c/10k/O=16 dense solve with the camera system
+    (N = 384) solved by kernel E, against the plain versions and against
+    the same solve through the library call, and the time of one LM
+    iteration of each variant, in turns (library, E, E, library). Returns
+    the launch counts of the 10-iteration kernel-E run."""
+    from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
+    from bundleadjustment_tpu_torch.solvers.dense_ba import dense_ba_solve
+    from bundleadjustment_tpu_torch.solvers.lm import LMConfig
+
+    prob, cams, pts = synthetic_dense(64, 10_000, 8, 16, device, fix_gauge=True)
+    counts = solve_both_ways("chol_solve_path", prob, cams, pts,
+                             {"K": 64, "L": 10_000, "N": 384},
+                             ("KERNEL_OPS_CHOL", "PLAIN_OPS_CHOL"))
+    cfg = LMConfig(max_iters=10)
+    c_e, _, i_e = dense_ba_solve(prob, cams, pts, cfg, ops=dk.KERNEL_OPS_CHOL)
+    c_l, _, i_l = dense_ba_solve(prob, cams, pts, cfg, ops=dk.KERNEL_OPS)
+    cam_err = max_abs(c_e, c_l)
+    rel = abs(float(i_e["cost"]) - float(i_l["cost"])) / abs(float(i_l["cost"]))
+    ms = [lm_iteration_ms(prob, cams, pts, getattr(dk, t)) for t in
+          ("KERNEL_OPS", "KERNEL_OPS_CHOL", "KERNEL_OPS_CHOL", "KERNEL_OPS")]
+    emit({"phase": "chol_solve_vs_library", "K": 64, "L": 10_000, "N": 384,
+          "cams_max_abs_diff": cam_err, "cost_rel_diff": rel,
+          "lm_iteration_ms_library": [ms[0], ms[3]],
+          "lm_iteration_ms_kernel_e": [ms[1], ms[2]]})
+    if not (cam_err < 5e-4 and rel < 1e-3):
+        raise AssertionError("the solve through kernel E and the solve through "
+                             "the library Cholesky disagree")
+    return counts
+
+
+def phase_two_view(device):
+    """The two-view estimators' batched SVDs on the card and on the CPU (800
+    pairs of a two-view scene, 256 hypotheses), and one whole
+    `recover_pose_two_view` on each, fed the same samples: the verdict
+    flags must be equal and rt6 within 1e-3 (the bound the CPU parity test
+    holds the port to against the JAX package)."""
+    import numpy as np
+    import torch
+
+    from bundleadjustment_tpu_torch.geometry import epipolar as ep
+    from bundleadjustment_tpu_torch.geometry.np_se3 import aa_to_R
+
+    rng = np.random.default_rng(5)
+    n = 800
+    X = rng.uniform([-2, -1.5, 3], [2, 1.5, 7], size=(n, 3))
+    rt = np.array([0.01, -0.08, 0.02, 0.4, 0.05, -0.1])
+    K4 = np.array([525.0, 525.0, 319.5, 239.5], np.float32)
+    X2 = X @ aa_to_R(rt[:3]).T + rt[3:]
+    proj = lambda P: np.stack([525 * P[:, 0] / P[:, 2] + 319.5,
+                               525 * P[:, 1] / P[:, 2] + 239.5], -1)
+    uv1 = (proj(X) + rng.normal(0, 0.3, (n, 2))).astype(np.float32)
+    uv2 = (proj(X2) + rng.normal(0, 0.3, (n, 2))).astype(np.float32)
+    uv2[:40] += rng.uniform(30, 120, (40, 2)).astype(np.float32)
+    gen = torch.Generator().manual_seed(0)
+    valid = torch.ones(n, dtype=torch.bool)
+    idx_e = ep.sample_indices(gen, valid, 256, 8)
+    idx_h = ep.sample_indices(gen, valid, 256, 4)
+
+    def host_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    out, results = {}, {}
+    for label, dev in (("cuda", device), ("cpu", torch.device("cpu"))):
+        a1, a2 = torch.from_numpy(uv1).to(dev), torch.from_numpy(uv2).to(dev)
+        k4, v = torch.from_numpy(K4).to(dev), valid.to(dev)
+        ie, ih = idx_e.to(dev), idx_h.to(dev)
+        x1, x2 = ep._pixels_to_normalized(a1, k4), ep._pixels_to_normalized(a2, k4)
+        R4 = torch.eye(3, device=dev).expand(4, 3, 3).contiguous()
+        t4 = torch.tensor([[1.0, 0, 0], [-1.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0]], device=dev)
+        out[label] = {
+            "eight_point_256x8x9_ms": host_ms(lambda: ep._eight_point(x1[ie], x2[ie])),
+            "four_point_256x8x9_ms": host_ms(lambda: ep._four_point_h(x1[ih], x2[ih])),
+            "triangulate_4x800x4x4_ms": host_ms(
+                lambda: ep._triangulate_cheirality(R4, t4, x1, x2, v)),
+            "triangulate_8x800x4x4_ms": host_ms(
+                lambda: ep._triangulate_cheirality(torch.cat([R4, R4]),
+                                                   torch.cat([t4, -t4]), x1, x2, v)),
+            "recover_pose_two_view_ms": host_ms(
+                lambda: ep.recover_pose_two_view(None, a1, a2, v, k4, idx_e=ie,
+                                                 idx_h=ih))}
+        results[label] = ep.recover_pose_two_view(None, a1, a2, v, k4, idx_e=ie,
+                                                  idx_h=ih)
+    g, c = results["cuda"], results["cpu"]
+    rt_err = max_abs(g.rt6.cpu(), c.rt6)
+    emit({"phase": "two_view", "pairs": n, "n_hyp": 256, **out,
+          "used_homography": bool(g.used_homography), "ok": bool(g.ok),
+          "n_inliers_cuda": int(g.n_inliers), "n_inliers_cpu": int(c.n_inliers),
+          "rt6_cuda_vs_cpu_max_abs": rt_err,
+          "rt6_vs_truth_max_abs_rot": float(np.abs(g.rt6.cpu().numpy()[:3] - rt[:3]).max())})
+    if not (bool(g.ok) and bool(c.ok) and not bool(g.used_homography)
+            and not bool(c.used_homography) and rt_err < 1e-3
+            and abs(int(g.n_inliers) - int(c.n_inliers)) <= 8):
+        raise AssertionError("recover_pose_two_view: the card and the CPU disagree")
+
+
+# The monocular sequence: the forward trajectory and hole-free depth of the
+# JAX package's standard-init golden (tests/test_layered_scene.py, there
+# 320x240 at fx = 260), at this smoke's width. fx / width is the same (0.82),
+# so the golden's step of 0.22 per frame gives the same parallax in relative
+# terms, twice as many pixels. A failed bootstrap makes the current frame
+# the new reference, so the baseline never grows past one step: the step
+# itself has to carry the parallax, and 0.22 initialises at the first pair.
+STANDARD_SEQUENCE = dict(motion_step=0.22, seed=4, hole_frac=0.0)
+# ATE bound (Horn with scale) of the standard-init run: the JAX package's
+# own CLI on the CPU on this very sequence (20 frames, same flags,
+# --track-batch 1) gave ATE_JAX_CPU_M (scale 0.2226, keyframes at frames 16
+# and 19, 445 landmarks; the port on the CPU: 0.03741 with the same
+# keyframes and landmarks); the port on the card is held to twice that. The
+# golden's own bound (0.018 at 320x240, 8 frames) is another sequence's.
+ATE_JAX_CPU_M = 0.0374
+ATE_STANDARD_BOUND_M = 0.075
+
+
+def write_sequence(root, n_frames, **render):
+    """Render a sequence (default: the config-1-shaped one) and write it in
+    TUM format with an intrinsics.json sidecar."""
     from bundleadjustment_tpu_torch.data.synthetic import (
         render_layered_scene,
         write_tum_format,
     )
 
+    render = render or dict(motion_step=0.03, seed=11)
     frames, K4 = render_layered_scene(
         n_frames=n_frames, width=640, height=480, fx=525.0, fy=525.0,
-        trajectory="forward", motion_step=0.03, seed=11)
+        trajectory="forward", **render)
     write_tum_format(root, frames)
     with open(os.path.join(root, "intrinsics.json"), "w") as f:
         json.dump({"fx": float(K4[0]), "fy": float(K4[1]), "cx": float(K4[2]),
                    "cy": float(K4[3]), "width": 640, "height": 480}, f)
 
 
-def phase_pipeline(device, data, n_frames, phase="pipeline", flags=()):
+def phase_pipeline(device, data, n_frames, phase="pipeline", flags=(),
+                   name="gtdepth_ba", ate_bound=0.05):
     """Run the port's CLI end to end on the sequence in `data`; returns
-    (pipeline, results, launch counts of this run)."""
+    (pipeline, results, launch counts of this run). `name` is the init type
+    and estimation in the output prefix; every frame must be tracked and
+    the ATE (Horn with scale) stay under `ate_bound`."""
     import torch
 
     from bundleadjustment_tpu_torch import cli, kernels
@@ -688,7 +954,7 @@ def phase_pipeline(device, data, n_frames, phase="pipeline", flags=()):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
-        prefix = os.path.join(out, "synthetic_gtdepth_ba_localba_f%d" % n_frames)
+        prefix = os.path.join(out, f"synthetic_{name}_localba_f{n_frames}")
         outputs_exist = [os.path.exists(prefix + s) for s in
                          ("_estimatedPoses.txt", "_mesh.off", "_results.json")]
     emit({"phase": phase, "flags": list(flags), "frames": res["frames"],
@@ -696,9 +962,15 @@ def phase_pipeline(device, data, n_frames, phase="pipeline", flags=()):
           "keyframes_final": res["n_keyframes_final"],
           "landmarks": res["n_map_points"], "wall_s": wall,
           "frames_per_s": res["frames"] / wall, "launches": counts,
+          "tracking_failures": res["tracking_failures"],
+          "ate_scale": res.get("ate_scale"), "ate_bound_m": ate_bound,
+          "ba_engines": sorted(set(e for _, e in pipe.ba_solves)),
+          "ba_first_two": pipe.ba_solves[:2], "ba_last": pipe.ba_solves[-1:],
           "phase_times": res["phase_times"], "outputs_exist": outputs_exist})
-    if not (res.get("ate_rmse") is not None and res["ate_rmse"] < 0.05):
-        raise AssertionError(f"{phase} ATE {res.get('ate_rmse')} >= 0.05 m")
+    if not (res.get("ate_rmse") is not None and res["ate_rmse"] < ate_bound):
+        raise AssertionError(f"{phase} ATE {res.get('ate_rmse')} >= {ate_bound} m")
+    if res["frames"] != n_frames or res["tracking_failures"] or not pipe.initialized:
+        raise AssertionError(f"{phase}: not every frame was tracked: {res}")
     if not all(outputs_exist):
         raise AssertionError(f"{phase} output files missing")
     return pipe, res, counts
@@ -746,6 +1018,33 @@ def phase_pipeline_sharded(device, data, n_frames, ate_default):
     return counts
 
 
+def phase_pipeline_monocular(device, data, tmp, runs):
+    """The monocular configurations through the CLI: pnp and E/H tracking on
+    20 frames of the gtdepth sequence in `data`, and the standard two-view
+    bootstrap on its own sequence (STANDARD_SEQUENCE), with the default BA
+    layout (the engine follows the observation count: reported, not forced)
+    and again with --ba-layout dense_landmark (kernels B and C on a
+    monocular map). The launch counts of each run go into `runs`."""
+    n = 20
+    # E/H tracking chains two-view poses with a constant-velocity scale: the
+    # JAX package's own test of it holds its ATE to 0.12 m, not to 0.05
+    for est, bound_m in (("pnp", 0.05), ("essential_or_homography", 0.12)):
+        _, _, runs[f"pipeline_{est}"] = phase_pipeline(
+            device, data, n, f"pipeline_{est}", ("--estimation", est),
+            name=f"gtdepth_{est}", ate_bound=bound_m)
+    seq = os.path.join(tmp, "seq_standard")
+    write_sequence(seq, n, **STANDARD_SEQUENCE)
+    ates = {}
+    for phase, flags in (("pipeline_standard", ()),
+                         ("pipeline_standard_dense", ("--ba-layout", "dense_landmark"))):
+        pipe, res, runs[phase] = phase_pipeline(
+            device, seq, n, phase, ("--init-type", "standard", *flags),
+            name="standard_ba", ate_bound=ATE_STANDARD_BOUND_M)
+        ates[phase] = res["ate_rmse"]
+    emit({"phase": "pipeline_standard_bound", "ate_jax_cpu_m": ATE_JAX_CPU_M,
+          "ate_bound_m": ATE_STANDARD_BOUND_M, **ates})
+
+
 def phase_pipeline_shapes(pipe, results):
     """Time the dense-BA kernels at the pipeline's own final global-BA shape
     (every active keyframe, landmarks with >= 2 observations)."""
@@ -773,10 +1072,11 @@ def check_launches(runs):
         need.setdefault(path, []).append(name)
     for path, names in ALSO_LAUNCHED.items():
         need[path] = need.get(path, []) + list(names)
-    missing = {path: [n for n in names if runs[path].get(n, 0) == 0]
+    missing = {path: [n for n in names
+                      if runs[path].get(n, 0) < MIN_LAUNCHES.get(n, 1)]
                for path, names in need.items()}
     missing = {p: n for p, n in missing.items() if n}
-    emit({"phase": "launch_check", "required": need,
+    emit({"phase": "launch_check", "required": need, "at_least": MIN_LAUNCHES,
           "launches": {p: runs[p] for p in need}, "missing": missing})
     if missing:
         raise AssertionError(f"runs that did not launch their kernels: {missing}")
@@ -802,7 +1102,9 @@ def main():
     phase_dense_kernels(device, results)
     phase_large_o_kernels(device, results)
     phase_dense_solve(device)
-    runs = {"large_o_solve": phase_large_o_solve(device)}
+    runs = {"large_o_solve": phase_large_o_solve(device),
+            "chol_solve_path": phase_chol_solve_path(device)}
+    phase_two_view(device)
     n_frames = 40
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "seq")
@@ -810,6 +1112,7 @@ def main():
         pipe, res, runs["pipeline"] = phase_pipeline(device, data, n_frames)
         runs["pipeline_sharded"] = phase_pipeline_sharded(
             device, data, n_frames, res["ate_rmse"])
+        phase_pipeline_monocular(device, data, tmp, runs)
     check_launches(runs)
     phase_pipeline_shapes(pipe, results)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

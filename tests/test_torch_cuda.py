@@ -4,7 +4,9 @@ PyTorch version on the same CUDA tensors. They skip without a card.
 This file imports no jax, so it runs on a machine with a card and without
 jax: `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
 
-Tolerances: kernel A bit-identical. Kernels B, C, K5 and D sum per-camera
+Tolerances: kernel A bit-identical. Kernel E (blocked Cholesky solve):
+relative max error < 1e-5 against float64 on S = A A^T + N I, and the same
+against its plain version. Kernels B, C, K5 and D sum per-camera
 rows, S and b with float atomics, in an order that changes from run to run:
 cost rtol 1e-5; red, Vu, g_p, W, S, b, red6 and G rtol 2e-4 / atol 2e-3
 relative to the max magnitude of each block
@@ -22,6 +24,7 @@ from bundleadjustment_tpu_torch.data.track_scene import make_track_scene
 from bundleadjustment_tpu_torch.parallel import sharded_dense_ba as tsh
 from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat
 from bundleadjustment_tpu_torch.ops import hamming as th
+from bundleadjustment_tpu_torch.solvers import chol as tc
 from bundleadjustment_tpu_torch.solvers import dense_ba as td
 from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
 from bundleadjustment_tpu_torch.solvers.lm import LMConfig
@@ -211,3 +214,46 @@ def test_one_shard_sharded_solve_matches_plain_on_card(cuda_device):
                                   reduce=lambda x: x)
     np.testing.assert_allclose(ck.cpu().numpy(), cp.cpu().numpy(), atol=5e-4)
     np.testing.assert_allclose(float(ik["cost"]), float(ip["cost"]), rtol=1e-3)
+
+
+@pytest.mark.parametrize("N", [1, 48, 50, 384, 426])
+def test_chol_solve_kernel_matches_plain_and_float64_on_card(cuda_device, N):
+    """Kernel E against float64 and its plain version; S is left as it was."""
+    rng = np.random.default_rng(N)
+    A = rng.standard_normal((N, N)).astype(np.float32)
+    S = A @ A.T + N * np.eye(N, dtype=np.float32)
+    b = rng.standard_normal(N).astype(np.float32)
+    St, bt = as_tensor(S, cuda_device), as_tensor(b, cuda_device)
+    x64 = np.linalg.solve(S.astype(np.float64), b)
+    rel = lambda x, ref: np.abs(x.cpu().numpy().astype(np.float64) - ref).max() / np.abs(ref).max()
+    kernels.reset_launch_counts()
+    x = tc.chol_solve(St, bt)
+    assert kernels.launch_counts()["chol_solve"] == 1
+    xp = tc.chol_solve_plain(St, bt).cpu().numpy().astype(np.float64)
+    assert rel(x, x64) < 1e-5 and rel(x, xp) < 1e-5
+    assert torch.equal(St, as_tensor(S, cuda_device))
+
+
+def test_chol_solve_rejects_what_the_kernel_does_not_take(cuda_device):
+    S = torch.eye(16, device=cuda_device)
+    b = torch.ones(16, device=cuda_device)
+    with pytest.raises(ValueError):
+        tc.chol_solve(S.double(), b.double())
+    with pytest.raises(ValueError):
+        tc.chol_solve(S[:, :8], b)
+    with pytest.raises(ValueError):
+        tc.chol_solve(S, b[:8])
+
+
+def test_dense_solve_with_kernel_e_matches_plain_on_card(cuda_device):
+    """The dense LM solve with the camera system solved by kernel E
+    (KERNEL_OPS_CHOL) against the plain versions (PLAIN_OPS_CHOL)."""
+    prob, cams, pts = _scene(8, 200, 32, 0.3, cuda_device)
+    cfg = LMConfig(max_iters=10)
+    kernels.reset_launch_counts()
+    ck, _, ik = td.dense_ba_solve(prob, cams, pts, cfg, ops=dk.KERNEL_OPS_CHOL)
+    assert kernels.launch_counts()["chol_solve"] == 10
+    cp, _, ip = td.dense_ba_solve(prob, cams, pts, cfg, ops=dk.PLAIN_OPS_CHOL)
+    np.testing.assert_allclose(ck.cpu().numpy(), cp.cpu().numpy(), atol=5e-4)
+    np.testing.assert_allclose(float(ik["cost"]), float(ip["cost"]), rtol=1e-3)
+    assert float(ik["cost"]) < float(ik["cost0"])

@@ -20,6 +20,8 @@ import bundleadjustment_tpu_torch.cli
 import bundleadjustment_tpu_torch.pipeline.driver
 import bundleadjustment_tpu_torch.interop
 import bundleadjustment_tpu_torch.solvers.dense_kernels
+import bundleadjustment_tpu_torch.solvers.chol
+import bundleadjustment_tpu_torch.geometry.epipolar
 import bundleadjustment_tpu_torch.parallel.sharded_dense_ba
 import bundleadjustment_tpu_torch.parallel.multihost
 import bundleadjustment_tpu_torch.data.track_scene
