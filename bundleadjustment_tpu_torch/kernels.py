@@ -65,8 +65,10 @@ SIGNATURES = {
         "schur_prepare": [P] * 6 + [I32] * 3 + [P] * 5,
     },
     "chol_solve": {
-        # S, b, N, work, x, stream
-        "chol_solve": [P, P, I32, P, P, P],
+        # S, b, N, grid, work, x, stream
+        "chol_solve": [P, P, I32, I32, P, P, P],
+        # out
+        "chol_solve_blocks_per_sm": [ctypes.POINTER(I32)],
     },
 }
 

@@ -15,8 +15,9 @@ script exits non-zero without printing the final line:
    the card, at the shapes the main paths give it (kernel A bit-identical;
    B, C, K5 and D to the stated tolerances; E, the blocked Cholesky solve,
    on the S and b that the Schur step produces at each shape, against its
-   plain version and float64 numpy, beside the library call
-   `cholesky_ex` + `cholesky_solve`), each timed as device time per
+   plain version with the kernel's panels and with the reference's, and
+   float64 numpy, beside the library call `cholesky_ex` + `cholesky_solve`,
+   with its panel, grid and grid barriers), each timed as device time per
    call ("ms", torch.profiler kernel durations, or CUDA events where the
    profiler delivers no kernel records: "ms_source" says which) and as
    CUDA-event time per back-to-back call ("call_ms", which includes the
@@ -158,16 +159,18 @@ def device_time(fn, reps=10, tries=3, kernel=None):
     """(ms, source): mean milliseconds of device time per call of fn(), the
     durations of the CUDA kernels it launched from torch.profiler (host gaps
     excluded), source "profiler". A profiler session now and then delivers
-    no kernel records, or not all of them: with `kernel` (a part of the
+    no kernel records, or not all of them. With `kernel` (a part of the
     name of a kernel that fn launches once per call) a profile counts only
-    if it holds `reps` records of it. After `tries` profiles that do not
-    count the time is taken with CUDA events instead (cuda_time, source
+    if it holds `reps` records of it; without, `tries` profiles are taken
+    and the one with the most kernel records counts. Where no profile
+    counts, the time is taken with CUDA events instead (cuda_time, source
     "cuda_events")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    best = None  # (kernel records, ms) of the fullest profile
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -175,9 +178,17 @@ def device_time(fn, reps=10, tries=3, kernel=None):
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
         total = sum(e.device_time_total for e in kern) / 1e3 / reps
-        whole = kernel is None or sum(e.count for e in kern if kernel in e.key) == reps
-        if total > 0.0 and whole:
-            return total, "profiler"
+        if total <= 0.0:
+            continue
+        if kernel is not None:
+            if sum(e.count for e in kern if kernel in e.key) == reps:
+                return total, "profiler"
+            continue
+        records = sum(e.count for e in kern)
+        if best is None or records > best[0]:
+            best = (records, total)
+    if best is not None:
+        return best[1], "profiler"
     return cuda_time(fn), "cuda_events"
 
 
@@ -294,22 +305,32 @@ def prepare_bound(ins, outs, W18, L):
     return bound(nbytes(*ins, *outs), PREP_OPS * L + (G_OPS + WZ_OPS) * slots)
 
 
+# kernel E's device ms per call before this design (one block of 1,024
+# threads, 8-row panels): PERF.md's K7 rows, from chip_smoke.py on an H100
+# 80GB HBM3 at 700 W; a fixed reference figure, not measured here
+ONE_BLOCK_E_MS = {48: 0.0209, 384: 0.6709, 426: 0.8693, 768: 3.173, 3600: 271.2}
+
+
 def compare_chol(tag, S, b):
-    """Kernel E on one camera system S x = b: against its plain version and
-    against float64 `numpy.linalg.solve`, beside the library call
-    (`schur.cholesky_solve_nan`: `cholesky_ex` + `cholesky_solve`).
+    """Kernel E on one camera system S x = b: against its plain version with
+    the kernel's panels (`chol_solve_plain(panel=PANEL_E)`) and with the
+    reference's (panel 8), and against float64 `numpy.linalg.solve`, beside
+    the library call (`schur.cholesky_solve_nan`: `cholesky_ex` +
+    `cholesky_solve`).
 
     Errors are relative max errors against float64. On S = A A^T + N I the
     bound is 1e-5; the LM systems are ill-conditioned ("eig_min", "eig_max":
     S's extreme eigenvalues in float64; cameras without observations leave
     eig_min at the 1e-8 jitter or, after float32 rounding, below zero), and
-    any float32 factorisation loses about eps * eig_max / eig_min there. So the stated bound is max(1e-5, 20 x the
-    library call's own error on the same system), for kernel against
-    float64 and for kernel against plain alike.
+    any float32 factorisation loses about eps * eig_max / eig_min there. So
+    the stated bound is max(1e-5, 20 x the library call's own error on the
+    same system), for kernel against float64 and against either plain
+    version alike.
 
     The bound_ms counts N^2 * 4 bytes (+ b and x) and N^3 / 3 + 2 N^2
-    operations; "chain_steps" is the length of the dependency chain, 3 N / 8
-    panel steps, which no byte or operation rate shortens."""
+    operations; "grid_barriers" is the length of the dependency chain (3
+    per panel less one), which no byte or operation rate shortens; "blocks"
+    is the cooperative grid, "panel" P. "one_block_ms" is ONE_BLOCK_E_MS."""
     import numpy as np
     import torch
 
@@ -319,7 +340,8 @@ def compare_chol(tag, S, b):
     N = S.shape[0]
     x_k = chol.chol_solve(S, b)
     torch.cuda.synchronize()
-    x_p = chol.chol_solve_plain(S, b)
+    x_p = chol.chol_solve_plain(S, b, panel=chol.PANEL_E)
+    x_p8 = chol.chol_solve_plain(S, b)
     x_l = cholesky_solve_nan(S, b)
     x64 = np.linalg.solve(S.double().cpu().numpy(), b.double().cpu().numpy())
     eig = torch.linalg.eigvalsh(S.double())
@@ -327,23 +349,29 @@ def compare_chol(tag, S, b):
                                / np.abs(ref).max())
     err_k, err_p, err_l = rel(x_k, x64), rel(x_p, x64), rel(x_l, x64)
     k_vs_p = rel(x_k, x_p.double().cpu().numpy())
+    k_vs_p8 = rel(x_k, x_p8.double().cpu().numpy())
     limit = max(1e-5, 20.0 * err_l)
+    plan = chol.card_plan(N, S.device)
     out = {"N": N, "eig_min": float(eig[0]), "eig_max": float(eig[-1]),
            "rel_err_vs_float64": err_k,
            "plain_rel_err_vs_float64": err_p, "library_rel_err_vs_float64": err_l,
-           "rel_err_vs_plain": k_vs_p, "rel_err_bound": limit,
-           "max_abs_err": max_abs(x_k, x_p), "chain_steps": 3 * ((N + 7) // 8)}
-    if not (err_k < limit and k_vs_p < limit and bool(torch.isfinite(x_k).all())):
+           "rel_err_vs_plain": k_vs_p, "rel_err_vs_plain_panel_8": k_vs_p8,
+           "rel_err_bound": limit, "max_abs_err": max_abs(x_k, x_p),
+           "panel": plan["panel"], "blocks": plan["grid"],
+           "grid_barriers": plan["grid_barriers"],
+           "one_block_ms": ONE_BLOCK_E_MS.get(N)}
+    if not (err_k < limit and k_vs_p < limit and k_vs_p8 < limit
+            and bool(torch.isfinite(x_k).all())):
         raise AssertionError(f"{tag} E: kernel {err_k}, plain {err_p}, library "
                              f"{err_l} against float64, kernel against plain "
-                             f"{k_vs_p}; bound {limit}")
+                             f"{k_vs_p} (panel 8: {k_vs_p8}); bound {limit}")
     lib_ms, lib_src = device_time(lambda: cholesky_solve_nan(S, b))
     ms, src = device_time(lambda: chol.chol_solve(S, b), kernel="chol_solve_kernel")
-    # the plain version is a Python loop of ~170 small launches per panel
-    # (75k launches a call at N = 3600, 1.5 s of host time): a torch.profiler
-    # profile of it takes minutes, so it is timed with CUDA events alone,
-    # over few calls; its time is the host's, not the card's
-    plain_ms = cuda_time(lambda: chol.chol_solve_plain(S, b),
+    # the plain version is a Python loop of ~270 small launches per panel
+    # (30k launches a call at N = 3600): a torch.profiler profile of it takes
+    # minutes, so it is timed with CUDA events alone, over few calls; its
+    # time is the host's, not the card's
+    plain_ms = cuda_time(lambda: chol.chol_solve_plain(S, b, panel=chol.PANEL_E),
                          reps=1 if N > 1000 else 3, warmup=1)
     out.update({"ms": ms, "ms_source": src,
                 "call_ms": cuda_time(lambda: chol.chol_solve(S, b)),

@@ -7,6 +7,8 @@ Tolerances: relative max error < 1e-5 against float64 on S = A A^T + N I
 dense solve: cameras atol 5e-4, final cost rtol 1e-3 (the bounds of
 tests/test_torch_solvers.py)."""
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -61,10 +63,83 @@ def test_chol_solve_ragged_last_panel(N):
 
 def test_chol8_inv_factors_and_inverts():
     S, _ = _spd(8, seed=3)
-    LT, Linv = tc._chol8_inv(T(S))
+    LT, Linv = tc._chol_inv(T(S))
     np.testing.assert_allclose((LT.T @ LT).numpy(), S, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose((Linv @ LT.T).numpy(), np.eye(8), atol=1e-5)
     assert torch.equal(LT, torch.triu(LT)) and torch.equal(Linv, torch.tril(Linv))
+
+
+def test_chol_inv_of_the_kernels_panel_factors_and_inverts():
+    """The PxP diagonal factor at kernel E's P: S = A A^T + P I (so
+    LT^T LT is held to 1e-5 of S's scale, not of its entries)."""
+    S, _ = _spd(tc.PANEL_E, seed=4)
+    LT, Linv = tc._chol_inv(T(S))
+    np.testing.assert_allclose((LT.T @ LT).numpy(), S, rtol=1e-5,
+                               atol=1e-5 * np.abs(S).max())
+    np.testing.assert_allclose((Linv @ LT.T).numpy(), np.eye(tc.PANEL_E), atol=1e-5)
+    assert torch.equal(LT, torch.triu(LT)) and torch.equal(Linv, torch.tril(Linv))
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_reference(N):
+    """(S, b, x from the JAX package's Pallas kernel in interpret mode, x in
+    float64). The Pallas kernel wants N % 8 == 0: a ragged N is padded with
+    the identity, whose solution is x padded with zeros."""
+    S, b = _spd(N, seed=N)
+    Np = -(-N // 8) * 8
+    Sp = np.eye(Np, dtype=np.float32)
+    Sp[:N, :N] = S
+    bp = np.zeros(Np, np.float32)
+    bp[:N] = b
+    x_jax = np.asarray(pallas_chol_solve(jnp.asarray(Sp), jnp.asarray(bp),
+                                         interpret=True))[:N]
+    return S, b, x_jax, np.linalg.solve(S.astype(np.float64), b)
+
+
+@pytest.mark.parametrize("panel", [tc.PANEL, tc.PANEL_E])
+@pytest.mark.parametrize("N", [1, 7, 48, 50, 384, 426])
+def test_chol_solve_plain_panels_match_pallas_and_numpy(N, panel):
+    """The plain version with the reference's panels and with kernel E's,
+    including N < P and ragged last panels, against the Pallas kernel and
+    float64."""
+    S, b, x_jax, x64 = _pallas_reference(N)
+    x = tc.chol_solve_plain(T(S), T(b), panel=panel).numpy()
+    assert _rel(x, x64) < 1e-5
+    assert _rel(x, x_jax.astype(np.float64)) < 1e-5
+
+
+def _upper_tiles(N, panel, tile):
+    """The tiles of the first trailing update that hold an entry on or above
+    the diagonal, b's column included, counted one by one."""
+    q = min(panel, N)
+    return sum(1 for i0 in range(q, N, tile) for k0 in range(q, N + 1, tile)
+               if k0 + tile - 1 >= i0)
+
+
+@pytest.mark.parametrize("N, sms, blocks_per_sm, grid, barriers, ld", [
+    (1, 132, 1, 1, 2, 4),          # one panel, nothing trails it
+    (48, 132, 1, 1, 5, 52),        # the pipeline's final BA: one block
+    (384, 132, 1, 21, 35, 388),    # E's path: fewer tiles than SMs
+    (426, 132, 1, 28, 41, 428),    # ragged last panel
+    (3600, 132, 1, 132, 338, 3604),  # every SM
+    (3600, 132, 2, 264, 338, 3604),
+    (3600, 16, 1, 16, 338, 3604),  # a smaller card
+])
+def test_launch_plan(N, sms, blocks_per_sm, grid, barriers, ld):
+    """Kernel E's host-side plan: grid (co-resident blocks, no more than the
+    first trailing update has tiles, at least one), panels, barriers (one
+    after the copy, two per panel step less the last one's update, one per
+    backward step less the last) and scratch ([S | b] rows padded to a
+    multiple of 4 floats, and one PxP inverse per panel)."""
+    plan = tc.launch_plan(N, sms, blocks_per_sm)
+    P = tc.PANEL_E
+    panels = -(-N // P)
+    assert plan["panel"] == P and plan["panels"] == panels
+    assert plan["tiles_first_step"] == _upper_tiles(N, P, tc.TILE)
+    assert plan["grid"] == grid
+    assert plan["grid_barriers"] == barriers == 1 + 2 * panels - 1 + panels - 1
+    assert plan["ld"] == ld and ld % 4 == 0 and ld > N
+    assert plan["scratch_floats"] == N * ld + panels * P * P
 
 
 def _scene():

@@ -6,7 +6,8 @@ jax: `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
 
 Tolerances: kernel A bit-identical. Kernel E (blocked Cholesky solve):
 relative max error < 1e-5 against float64 on S = A A^T + N I, and the same
-against its plain version. Kernels B, C, K5 and D sum per-camera
+against its plain version with the same panels, and bit-identical between
+two calls. Kernels B, C, K5 and D sum per-camera
 rows, S and b with float atomics, in an order that changes from run to run:
 cost rtol 1e-5; red, Vu, g_p, W, S, b, red6 and G rtol 2e-4 / atol 2e-3
 relative to the max magnitude of each block
@@ -216,22 +217,44 @@ def test_one_shard_sharded_solve_matches_plain_on_card(cuda_device):
     np.testing.assert_allclose(float(ik["cost"]), float(ip["cost"]), rtol=1e-3)
 
 
-@pytest.mark.parametrize("N", [1, 48, 50, 384, 426])
-def test_chol_solve_kernel_matches_plain_and_float64_on_card(cuda_device, N):
-    """Kernel E against float64 and its plain version; S is left as it was."""
+def _chol_case(N):
     rng = np.random.default_rng(N)
     A = rng.standard_normal((N, N)).astype(np.float32)
     S = A @ A.T + N * np.eye(N, dtype=np.float32)
     b = rng.standard_normal(N).astype(np.float32)
+    return S, b, np.linalg.solve(S.astype(np.float64), b)
+
+
+def _rel(x, ref):
+    x = x.cpu().numpy().astype(np.float64) if torch.is_tensor(x) else x
+    return np.abs(x - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("N", [1, 48, 50, 384, 426, 768, 1000, 3600])
+def test_chol_solve_kernel_matches_plain_and_float64_on_card(cuda_device, N):
+    """Kernel E against float64 and its plain version with the kernel's
+    panels, in one launch; S is left as it was, and a second call on the
+    same inputs gives the same x (no sum goes through an atomic)."""
+    S, b, x64 = _chol_case(N)
     St, bt = as_tensor(S, cuda_device), as_tensor(b, cuda_device)
-    x64 = np.linalg.solve(S.astype(np.float64), b)
-    rel = lambda x, ref: np.abs(x.cpu().numpy().astype(np.float64) - ref).max() / np.abs(ref).max()
     kernels.reset_launch_counts()
     x = tc.chol_solve(St, bt)
     assert kernels.launch_counts()["chol_solve"] == 1
-    xp = tc.chol_solve_plain(St, bt).cpu().numpy().astype(np.float64)
-    assert rel(x, x64) < 1e-5 and rel(x, xp) < 1e-5
+    xp = tc.chol_solve_plain(St, bt, panel=tc.PANEL_E).cpu().numpy().astype(np.float64)
+    assert _rel(x, x64) < 1e-5 and _rel(x, xp) < 1e-5
     assert torch.equal(St, as_tensor(S, cuda_device))
+    assert torch.equal(tc.chol_solve(St, bt), x)
+
+
+def test_chol_solve_kernel_on_an_indefinite_system_on_card(cuda_device):
+    """An indefinite S: the clamped pivots give huge or non-finite x (where
+    the library call gives NaN), and the kernel returns."""
+    S, b, _ = _chol_case(426)
+    S = S - 2.0 * np.diag(np.diag(S))  # negative diagonal
+    x = tc.chol_solve(as_tensor(S, cuda_device), as_tensor(b, cuda_device))
+    torch.cuda.synchronize()
+    assert x.shape == (426,)
+    assert not bool(torch.isfinite(x).all()) or float(x.abs().max()) > 1e6
 
 
 def test_chol_solve_rejects_what_the_kernel_does_not_take(cuda_device):
