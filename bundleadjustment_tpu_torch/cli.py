@@ -21,7 +21,9 @@ ROADMAP item that ports them: --global-ba windowed, --ba-solver pcg,
 poisson, --display-pointcloud. --no-warmup, --matcher, --no-fused-tracking
 and --track-batch are accepted and change nothing (their --help says so):
 they tuned the JAX package's compilation and dispatch, which the port does
-not have.
+not have; the JAX microbatch of --track-batch also froze the local-map
+snapshot for a batch, and its --help says how far the port's per-frame
+result stays from that.
 """
 
 from __future__ import annotations
@@ -63,11 +65,16 @@ def build_parser():
                    help=no_op + "sends every Hamming top-2 search through "
                    "kernel A on cuda and its plain version on cpu")
     p.add_argument("--no-fused-tracking", action="store_true", default=False,
-                   help=no_op + "always tracks with the fused matcher")
+                   help=no_op + "always tracks with the fused matcher, one "
+                   "frame at a time (see --track-batch)")
     p.add_argument("--no-warmup", action="store_true", default=False,
                    help=no_op + "compiles nothing ahead of the first frame")
     p.add_argument("--track-batch", type=int, default=8,
-                   help=no_op + "tracks one frame at a time")
+                   help=no_op + "tracks one frame at a time, as the JAX CLI "
+                   "does at --track-batch 1; against the JAX CLI's default "
+                   "microbatch of 8 it agrees to the JAX package's own "
+                   "tolerance for it (statuses and keyframes equal, map size "
+                   "within 2%%, ATE within 0.01 m)")
     p.add_argument("--ba-layout", choices=["auto", "flat", "dense_landmark"],
                    default="auto")
     p.add_argument("--global-ba", choices=["single", "windowed", "sharded"],

@@ -1,7 +1,8 @@
 // Per-landmark Schur-prepare math shared by kernel C and K5 (schur_s.cu) and
 // kernel D (schur_prepare.cu): the damped point block, its closed-form
-// inverse, the lower Cholesky factor of the inverse, zv = V^-1 g_p, and
-// G_o = W_o chol(V^-1) for one observation slot. The formulas and their
+// inverse, the lower Cholesky factor of the inverse, zv = V^-1 g_p
+// (point_solve; point_store writes V^-1 and zv), and G_o = W_o chol(V^-1)
+// for one observation slot. The formulas and their
 // operation order are those of the reference's _schur_kernel /
 // _schur_s_kernel (bundleadjustment_tpu/solvers/pallas_dense_eval.py) and of
 // the plain PyTorch version (`_point_prepare_plain` in
@@ -15,14 +16,14 @@
 struct PointPrep {
   float C[3][3];  // lower chol(V^-1)
   float zv[3];    // V^-1 g_p
+  float vinv[6];  // V^-1: (0,0) (0,1) (0,2) (1,1) (1,2) (2,2)
 };
 
-// Damped V (identity for invalid points), V^-1 -> vinv_out[6][L], zv ->
-// zv_out[3][L]; returns C and zv for the slot loop.
-__device__ __forceinline__ PointPrep point_prepare(
+// Damped V (identity for invalid points), V^-1, chol(V^-1) and zv of
+// landmark l, in registers; nothing is written.
+__device__ __forceinline__ PointPrep point_solve(
     float lam, const float* __restrict__ Vu, const float* __restrict__ g_p,
-    const uint8_t* __restrict__ pt_valid, int l, int L,
-    float* __restrict__ zv_out, float* __restrict__ vinv_out) {
+    const uint8_t* __restrict__ pt_valid, int l, int L) {
   float v00 = Vu[l], v01 = Vu[L + l], v02 = Vu[2 * L + l];
   float v11 = Vu[3 * L + l], v12 = Vu[4 * L + l], v22 = Vu[5 * L + l];
   v00 = v00 + lam * fmaxf(v00, 1e-6f);
@@ -43,14 +44,10 @@ __device__ __forceinline__ PointPrep point_prepare(
   const float F = v00 * v11 - v01 * v01;
   const float i00 = A * inv_det, i01 = B * inv_det, i02 = Cc * inv_det;
   const float i11 = D * inv_det, i12 = E * inv_det, i22 = F * inv_det;
-  vinv_out[l] = i00;
-  vinv_out[L + l] = i01;
-  vinv_out[2 * L + l] = i02;
-  vinv_out[3 * L + l] = i11;
-  vinv_out[4 * L + l] = i12;
-  vinv_out[5 * L + l] = i22;
 
   PointPrep p;
+  p.vinv[0] = i00; p.vinv[1] = i01; p.vinv[2] = i02;
+  p.vinv[3] = i11; p.vinv[4] = i12; p.vinv[5] = i22;
   const float l00 = sqrtf(fmaxf(i00, 1e-20f));
   const float l10 = i01 / l00;
   const float l20 = i02 / l00;
@@ -65,9 +62,26 @@ __device__ __forceinline__ PointPrep point_prepare(
   p.zv[0] = i00 * gp0 + i01 * gp1 + i02 * gp2;
   p.zv[1] = i01 * gp0 + i11 * gp1 + i12 * gp2;
   p.zv[2] = i02 * gp0 + i12 * gp1 + i22 * gp2;
-  zv_out[l] = p.zv[0];
-  zv_out[L + l] = p.zv[1];
-  zv_out[2 * L + l] = p.zv[2];
+  return p;
+}
+
+// V^-1 -> vinv_out[6][L] and zv -> zv_out[3][L] for landmark l.
+__device__ __forceinline__ void point_store(const PointPrep& p, int l, int L,
+                                            float* __restrict__ zv_out,
+                                            float* __restrict__ vinv_out) {
+#pragma unroll
+  for (int j = 0; j < 6; ++j) vinv_out[j * L + l] = p.vinv[j];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) zv_out[j * L + l] = p.zv[j];
+}
+
+// point_solve, then point_store: returns C and zv for the slot loop.
+__device__ __forceinline__ PointPrep point_prepare(
+    float lam, const float* __restrict__ Vu, const float* __restrict__ g_p,
+    const uint8_t* __restrict__ pt_valid, int l, int L,
+    float* __restrict__ zv_out, float* __restrict__ vinv_out) {
+  const PointPrep p = point_solve(lam, Vu, g_p, pt_valid, l, L);
+  point_store(p, l, L, zv_out, vinv_out);
   return p;
 }
 

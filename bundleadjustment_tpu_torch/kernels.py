@@ -53,11 +53,11 @@ SIGNATURES = {
     },
     "schur_s": {
         # lam, red27, cam_fixed, Vu, g_p, pt_valid, W18, cam_t, O, L, K,
-        # S, b, zv, vinv6, stream
-        "schur_prepare_s": [P] * 8 + [I32] * 3 + [P] * 5,
-        # lam, Vu, g_p, pt_valid, W18, cam_t, O, L, K, S, red6, zv, vinv6,
-        # stream
-        "schur_qqt_partial": [P] * 6 + [I32] * 3 + [P] * 5,
+        # tile, chunks, slots, Sp, Rp, S, b, zv, vinv6, stream
+        "schur_prepare_s": [P] * 8 + [I32] * 6 + [P] * 7,
+        # lam, Vu, g_p, pt_valid, W18, cam_t, O, L, K, tile, chunks, slots,
+        # Sp, Rp, S, red6, zv, vinv6, stream
+        "schur_qqt_partial": [P] * 6 + [I32] * 6 + [P] * 7,
     },
     "schur_prepare": {
         # lam, Vu, g_p, pt_valid, W18, cam_t, O, L, K, G, zv, vinv6, red6,

@@ -9,10 +9,11 @@ Port of `bundleadjustment_tpu/solvers/pallas_dense_eval.py`:
   back-substitution flag);
 - `schur_prepare_s` replaces `fused_schur_prepare_s(..., red27=...,
   cam_fixed=...)`, the single-device `fold_u=True` path, in float32
-  (`csrc/schur_s.cu`);
+  (`csrc/schur_s.cu`: tiles of S in shared memory, laid out by the host
+  plan `schur_s_plan`, whose blocking `_qqt_tiled` repeats on the CPU);
 - `schur_qqt_partial` replaces `fused_schur_prepare_s(...)` without red27,
-  the sharded engine's `fold_u=False` path (K5; kernel C's landmark loop
-  launched onto zero, in C's (i, k) order);
+  the sharded engine's `fold_u=False` path (K5; kernel C's passes with
+  nothing folded in, in C's (i, k) order);
 - `schur_prepare` replaces `fused_schur_prepare` (K6; `csrc/
   schur_prepare.cu`), whose G feeds the outside `pf_index_add` / `qqt`
   product for large O.
@@ -23,9 +24,11 @@ outputs use the reference's component-major layouts, so a test can hand the
 same arrays to both packages.
 
 Tolerances against the plain versions (and against the JAX kernels): the
-kernels sum per-camera rows and S entries with float atomics, in an order
-that changes from run to run; cost agrees to rtol 1e-5, the block outputs to
-rtol 2e-4 / atol 2e-3 relative to each block's own magnitude.
+kernels sum per-camera rows (B, D: global float atomics) and S entries (C,
+K5: shared-memory atomics within a block, then the chunks in a fixed order)
+in an order that changes from run to run; cost agrees to rtol 1e-5, the
+block outputs to rtol 2e-4 / atol 2e-3 relative to each block's own
+magnitude.
 """
 
 from __future__ import annotations
@@ -246,30 +249,150 @@ def pf_index_add(G, cam_t, n_cams):
                        device=G.device).index_add_(0, slot, G.reshape(18, -1).T)
 
 
-def qqt(Pf, n_cams):
-    """Q Q^T [6K, 6K] from Pf [L*K, 18] (columns i*3 + m), with Q's rows in
-    (i, k) order (row i*K + k); a plain matrix product."""
+def qqt_factor(Pf, n_cams):
+    """Q [6K, 3L] from Pf [L*K, 18] (columns i*3 + m), rows in (i, k) order
+    (row i*K + k)."""
     K = n_cams
     L = Pf.shape[0] // K
-    Q = Pf.reshape(L, K, 6, 3).permute(2, 1, 0, 3).reshape(6 * K, 3 * L)
+    return Pf.reshape(L, K, 6, 3).permute(2, 1, 0, 3).reshape(6 * K, 3 * L)
+
+
+def qqt(Pf, n_cams):
+    """Q Q^T [6K, 6K] from Pf [L*K, 18]; a plain matrix product."""
+    Q = qqt_factor(Pf, n_cams)
     return Q @ Q.T
 
 
-def schur_qqt_partial_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):
+# Kernel C / K5's blocking (csrc/schur_s.cu): warps a block, landmarks a
+# scan unit (landmark l is in chunk (l // SCHUR_UNIT) % chunks), floats a
+# staged slot, staged slots a batch at least; the shared memory a block may
+# take on an H100, and the bound on the scratch slabs.
+SCHUR_WARPS = 16
+SCHUR_UNIT = 32
+SCHUR_GS = 25
+SCHUR_SLOTS = 384
+SMEM_MAX_BYTES = 232_448  # 227 KB
+SCHUR_SCRATCH_CAP = 64 << 20
+
+SchurPlan = namedtuple("SchurPlan", "tile n_tiles pairs chunks slots smem_bytes "
+                       "scratch_bytes")
+
+
+def schur_tile_bytes(T, slots=SCHUR_SLOTS, O=32):
+    """Dynamic shared memory of one schur_tiles block at tile size T with
+    `slots` staged observation slots and O slots a landmark (csrc/
+    schur_s.cu: tile_smem_bytes)."""
+    n6 = 6 * T
+    mw = -(-O // 32)
+    return (4 * (n6 * (n6 + 2) + SCHUR_WARPS * n6 + slots * SCHUR_GS
+                 + SCHUR_WARPS * SCHUR_UNIT * (2 + 2 * mw) + SCHUR_WARPS + 1)
+            + 5 * slots)
+
+
+def schur_tile_max(slots=SCHUR_SLOTS, O=32):
+    """The largest tile whose block fits in SMEM_MAX_BYTES (0: none)."""
+    return max((T for T in range(1, 6 * SCHUR_WARPS + 1)
+                if schur_tile_bytes(T, slots, O) <= SMEM_MAX_BYTES), default=0)
+
+
+
+def schur_s_plan(K, L, O, n_sm, tile=None):
+    """Kernel C / K5's launch plan, from the shapes and the SM count alone.
+
+    - slots: staged observation slots a batch: SCHUR_SLOTS or one
+      landmark's O if more, then as many more as fit beside the tile, up to
+      64 landmarks' worth;
+    - tile T: the cameras are cut into n_tiles = ceil(K / T_max) tiles of
+      T = ceil(K / n_tiles) (`tile` overrides T), so the 6T x 6T float tile
+      and the staged slots sit in a block's shared memory: one tile up to
+      K = schur_tile_max() (35 for O <= 32);
+    - pairs: the tile pairs (I, J), I <= J: the diagonal pairs first, then
+      the others in row-major order;
+    - chunks: the landmark chunks of every pair, one block each. One chunk
+      once the pairs alone hold half the SMs; else two waves at most
+      (2 n_sm // pairs), at most one chunk a unit of SCHUR_UNIT landmarks,
+      and at most what SCHUR_SCRATCH_CAP holds (at least 1); 0 when L = 0;
+    - scratch_bytes: the chunk slabs of every pair and the rhs rows of every
+      tile, at most max(SCHUR_SCRATCH_CAP, one chunk's slabs)."""
+    slots = max(SCHUR_SLOTS, O)
+    t_max = schur_tile_max(slots, O)
+    if t_max == 0:
+        raise ValueError(f"O = {O}: a landmark's slots do not fit in shared memory")
+    T = tile or max(1, -(-K // max(1, -(-K // t_max))))
+    # then as many slots as fit beside the tile, up to 64 landmarks' worth
+    while (slots + 32 <= max(SCHUR_SLOTS, 64 * O)
+           and schur_tile_bytes(T, slots + 32, O) <= SMEM_MAX_BYTES):
+        slots += 32
+    nt = max(1, -(-K // T))
+    pairs = [(i, i) for i in range(nt)] + [(i, j) for i in range(nt)
+                                           for j in range(i + 1, nt)]
+    per_chunk = 4 * (len(pairs) * 36 * T * T + nt * 6 * T)
+    if L == 0:
+        chunks = 0
+    else:
+        chunks = max(1, 2 * n_sm // len(pairs)) if len(pairs) < n_sm // 2 else 1
+        chunks = min(chunks, -(-L // SCHUR_UNIT))
+        chunks = max(1, min(chunks, SCHUR_SCRATCH_CAP // per_chunk))
+    return SchurPlan(T, nt, pairs, chunks, slots, schur_tile_bytes(T, slots, O),
+                     chunks * per_chunk)
+
+
+def _qqt_tiled(G, wz, cam_t, n_cams, plan):
+    """S_qqt [6K,6K] and red6 [6,K] summed in the kernel's blocking: for
+    each tile pair, its chunks' partials in chunk order, mirrored into the
+    lower pairs; red6 chunk by chunk."""
+    K = n_cams
+    L = cam_t.shape[1]
+    T, chunks = plan.tile, plan.chunks
+    S = torch.zeros((6 * K, 6 * K), dtype=G.dtype, device=G.device)
+    red6 = torch.zeros((6, K), dtype=G.dtype, device=G.device)
+    chunk_of = (torch.arange(L, device=cam_t.device) // SCHUR_UNIT) % max(chunks, 1)
+    rows = [torch.tensor([i * K + k for i in range(6)
+                          for k in range(I * T, min(K, (I + 1) * T))],
+                         dtype=torch.long, device=G.device)
+            for I in range(plan.n_tiles)]
+    Qs, reds = [], []
+    for c in range(chunks):
+        sel = torch.nonzero(chunk_of == c).flatten()
+        Qs.append(qqt_factor(pf_index_add(G[:, :, sel], cam_t[:, sel], K), K))
+        reds.append(torch.zeros((K, 6), dtype=wz.dtype, device=wz.device).index_add_(
+            0, cam_t[:, sel].reshape(-1).long(), wz[:, :, sel].reshape(6, -1).T).T)
+    for I, J in plan.pairs:
+        rI, rJ = rows[I], rows[J]
+        acc = torch.zeros((len(rI), len(rJ)), dtype=G.dtype, device=G.device)
+        for Q in Qs:
+            acc = acc + Q[rI] @ Q[rJ].T
+        S[rI[:, None], rJ[None, :]] = acc
+        if I != J:
+            S[rJ[:, None], rI[None, :]] = acc.T
+    for r in reds:
+        red6 = red6 + r
+    return S, red6
+
+
+def schur_qqt_partial_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams,
+                            plan=None):
     """Plain version of K5. Returns (S_qqt [6K,6K] = +Q Q^T, zv [3,L],
-    vinv6 [6,L], red6 [6,K]), in (i, k) order."""
+    vinv6 [6,L], red6 [6,K]), in (i, k) order. With a `plan`
+    (schur_s_plan) the sums follow the kernel's blocking: tile pair by tile
+    pair and chunk by chunk."""
     G, zv, vinv6, red6 = schur_prepare_plain(lam, Vu, g_p, pt_valid, W18,
                                              cam_t, n_cams)
+    if plan is not None:
+        wz = torch.stack([sum(W18[i * 3 + j] * zv[j][None, :] for j in range(3))
+                          for i in range(6)])
+        S_qqt, red6 = _qqt_tiled(G, wz, cam_t, n_cams, plan)
+        return S_qqt, zv, vinv6, red6
     return qqt(pf_index_add(G, cam_t, n_cams), n_cams), zv, vinv6, red6
 
 
 def schur_prepare_s_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, red27,
-                          cam_fixed):
+                          cam_fixed, plan=None):
     """Plain version of kernel C. Returns (S [6K,6K], zv [3,L], vinv6 [6,L],
     b [6K]), S = U_damped_embed + 1e-8 I - Q Q^T and b = -(g_c - sum W zv),
-    both in (i, k) order (row i*K + k)."""
+    both in (i, k) order (row i*K + k); `plan` as schur_qqt_partial_plain."""
     S_qqt, zv, vinv6, red6 = schur_qqt_partial_plain(lam, Vu, g_p, pt_valid,
-                                                     W18, cam_t, n_cams)
+                                                     W18, cam_t, n_cams, plan)
     S, b = damped_system(lam, red27, cam_fixed, S_qqt, red6)
     return S, zv, vinv6, b
 
@@ -286,6 +409,22 @@ def _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t):
     return O, L
 
 
+def _schur_buffers(cam_t, K, L, O):
+    """Kernel C / K5's plan for this card, its scratch slabs (Sp, Rp) and
+    outputs (S [6K,6K], rhs [6K], zv [3,L], vinv6 [6,L]), all torch.empty."""
+    dev = cam_t.device
+    plan = schur_s_plan(K, L, O, torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    f32 = torch.float32
+    n6 = 6 * plan.tile
+    Sp = torch.empty((len(plan.pairs) * plan.chunks * n6 * n6,), dtype=f32, device=dev)
+    Rp = torch.empty((plan.n_tiles * plan.chunks * n6,), dtype=f32, device=dev)
+    return (plan, Sp, Rp, torch.empty((6 * K, 6 * K), dtype=f32, device=dev),
+            torch.empty((6 * K,), dtype=f32, device=dev),
+            torch.empty((3, L), dtype=f32, device=dev),
+            torch.empty((6, L), dtype=f32, device=dev))
+
+
 def schur_prepare_s(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, red27,
                     cam_fixed):
     """Kernel C: the damped Schur system of one LM iteration.
@@ -299,19 +438,15 @@ def schur_prepare_s(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, red27,
                                      n_cams, red27, cam_fixed)
     O, L = _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t)
     K = n_cams
-    dev = cam_t.device
-    f32 = torch.float32
-    kernels.check_cuda("red27", red27, f32, (K, N_RED))
+    kernels.check_cuda("red27", red27, torch.float32, (K, N_RED))
     kernels.check_cuda("cam_fixed", cam_fixed, torch.bool, (K,))
-    S = torch.empty((6 * K, 6 * K), dtype=f32, device=dev)
-    b = torch.empty((6 * K,), dtype=f32, device=dev)
-    zv = torch.empty((3, L), dtype=f32, device=dev)
-    vinv6 = torch.empty((6, L), dtype=f32, device=dev)
+    plan, Sp, Rp, S, b, zv, vinv6 = _schur_buffers(cam_t, K, L, O)
     code = kernels.lib("schur_s").schur_prepare_s(
         lam.data_ptr(), red27.data_ptr(), cam_fixed.data_ptr(), Vu.data_ptr(),
         g_p.data_ptr(), pt_valid.data_ptr(), W18.data_ptr(), cam_t.data_ptr(),
-        O, L, K, S.data_ptr(), b.data_ptr(), zv.data_ptr(), vinv6.data_ptr(),
-        kernels.stream_of(cam_t))
+        O, L, K, plan.tile, plan.chunks, plan.slots, Sp.data_ptr(),
+        Rp.data_ptr(), S.data_ptr(), b.data_ptr(), zv.data_ptr(),
+        vinv6.data_ptr(), kernels.stream_of(cam_t))
     kernels.check(code, "schur_prepare_s")
     kernels.LAUNCHES["schur_prepare_s"] += 1
     return S, zv, vinv6, b
@@ -329,20 +464,16 @@ def schur_qqt_partial(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):
                                        n_cams)
     O, L = _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t)
     K = n_cams
-    dev = cam_t.device
-    f32 = torch.float32
-    S = torch.empty((6 * K, 6 * K), dtype=f32, device=dev)
-    red6 = torch.empty((6, K), dtype=f32, device=dev)
-    zv = torch.empty((3, L), dtype=f32, device=dev)
-    vinv6 = torch.empty((6, L), dtype=f32, device=dev)
+    plan, Sp, Rp, S, red6, zv, vinv6 = _schur_buffers(cam_t, K, L, O)
     code = kernels.lib("schur_s").schur_qqt_partial(
         lam.data_ptr(), Vu.data_ptr(), g_p.data_ptr(), pt_valid.data_ptr(),
-        W18.data_ptr(), cam_t.data_ptr(), O, L, K, S.data_ptr(),
+        W18.data_ptr(), cam_t.data_ptr(), O, L, K, plan.tile, plan.chunks,
+        plan.slots, Sp.data_ptr(), Rp.data_ptr(), S.data_ptr(),
         red6.data_ptr(), zv.data_ptr(), vinv6.data_ptr(),
         kernels.stream_of(cam_t))
     kernels.check(code, "schur_qqt_partial")
     kernels.LAUNCHES["schur_qqt_partial"] += 1
-    return S, zv, vinv6, red6
+    return S, zv, vinv6, red6.reshape(6, K)
 
 
 def schur_prepare(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):

@@ -30,7 +30,10 @@ script exits non-zero without printing the final line:
    only those counts and the longest track (71 observations); how many
    landmarks every camera sees (n_all) and the law of the other track
    lengths are assumptions, so the routes are timed at n_all = 1, 50 and
-   500;
+   500, and at n_all = 500 with every track cut to O = 16 and 32 (the
+   evidence for the O gate of route (s)); kernel C and K5 lines also give
+   their launch plan (tile, tiles, chunks, blocks, scratch_mb) and their
+   device ms before the tiled design ("old_ms", a fixed figure);
 4. dense solve: 128 cams / 100k landmarks (the two best-observed cameras
    fixed, so the solution has no free gauge), 10 LM iterations through the
    kernels and through the plain versions; costs and cameras must agree and
@@ -311,6 +314,32 @@ def prepare_bound(ins, outs, W18, L):
 ONE_BLOCK_E_MS = {48: 0.0209, 384: 0.6709, 426: 0.8693, 768: 3.173, 3600: 271.2}
 
 
+# kernels C and K5 before this design (one thread per landmark, float
+# atomics into S), device ms per call by shape: PERF.md's K3 / K5 rows, from
+# chip_smoke.py on an H100 80GB HBM3 at 700 W; fixed reference figures, not
+# measured here
+OLD_SCHUR_MS = {
+    "schur_prepare_s": {"64c_10k_O16": 0.4255, "128c_100k_O8": 1.194,
+                        "config7": 12.54, "pipeline_final_ba": 0.03342},
+    "schur_qqt_partial": {"128c_100k_O8": 1.183, "config7": 12.55,
+                          "pipeline_final_ba": 0.03741}}
+
+
+def schur_plan_fields(name, tag, K, L, O):
+    """Kernel C / K5's launch plan at this shape (dense_kernels.
+    schur_s_plan on this card) and its time before this design."""
+    import torch
+
+    from bundleadjustment_tpu_torch.solvers.dense_kernels import schur_s_plan
+
+    plan = schur_s_plan(K, L, O, torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+    return {"tile": plan.tile, "tiles": plan.n_tiles, "chunks": plan.chunks,
+            "blocks": len(plan.pairs) * plan.chunks,
+            "scratch_mb": plan.scratch_bytes / 2**20,
+            "old_ms": OLD_SCHUR_MS[name].get(tag)}
+
+
 def compare_chol(tag, S, b):
     """Kernel E on one camera system S x = b: against its plain version with
     the kernel's panels (`chol_solve_plain(panel=PANEL_E)`) and with the
@@ -549,7 +578,8 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
             "max_abs_err": max(errs),
             **time_pair(lambda: dk.schur_prepare_s(*c_args),
                         lambda: dk.schur_prepare_s_plain(*c_args)),
-            **schur_bound(c_ins, s_k, W18, L), "library_ms": None}
+            **schur_bound(c_ins, s_k, W18, L), "library_ms": None,
+            **schur_plan_fields("schur_prepare_s", tag, K, L, O)}
 
     p_args = c_args[:7]
     if "schur_qqt_partial" in names:
@@ -564,7 +594,8 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
             "max_abs_err": max(errs),
             **time_pair(lambda: dk.schur_qqt_partial(*p_args),
                         lambda: dk.schur_qqt_partial_plain(*p_args)),
-            **schur_bound(p_args[:6], q_k, W18, L), "library_ms": None}
+            **schur_bound(p_args[:6], q_k, W18, L), "library_ms": None,
+            **schur_plan_fields("schur_qqt_partial", tag, K, L, O)}
 
     if "schur_prepare" in names:
         d_k = dk.schur_prepare(*p_args)
@@ -650,11 +681,14 @@ def phase_dense_kernels(device, results):
                                   if k != "max_abs_err"})
 
 
-def track_dense(device, n_cams=71, n_pts=10_842, n_obs=156_774, n_all=500):
+def track_dense(device, n_cams=71, n_pts=10_842, n_obs=156_774, n_all=500,
+                max_obs=128):
     """The config-7-shaped dense problem (make_track_scene: every camera sees
     the n_all tail landmarks, so O = 72), with the two most-observed cameras
     fixed at their true poses. The counts are the records'; n_all = 500 and
-    the track-length law are assumptions (the records keep no map)."""
+    the track-length law are assumptions (the records keep no map). With
+    max_obs < 72 every track keeps its first max_obs observations (O =
+    max_obs); the rest are dropped."""
     import numpy as np
     import torch
 
@@ -668,8 +702,8 @@ def track_dense(device, n_cams=71, n_pts=10_842, n_obs=156_774, n_all=500):
     sc.extr_init[gauge] = sc.extr_gt[gauge]
     prob, dropped = densify_problem(sc.K4, sc.cam_idx, sc.pt_idx, sc.uv,
                                     sc.sigma2, sc.valid, cam_fixed, n_pts,
-                                    max_obs=128, device=device)
-    if dropped:
+                                    max_obs=max_obs, device=device)
+    if dropped and max_obs >= 72:
         raise AssertionError(f"config-7 shape: {dropped} observations dropped")
     return (prob, torch.from_numpy(sc.extr_init).to(device),
             torch.from_numpy(sc.points_init).to(device))
@@ -678,20 +712,21 @@ def track_dense(device, n_cams=71, n_pts=10_842, n_obs=156_774, n_all=500):
 # landmarks seen by all 71 cameras at which the Schur-step routes are timed:
 # the records imply at least one (the longest track has 71 observations)
 N_ALL_SWEEP = (1, 50, 500)
+SCHUR_GATE_SWEEP = (16, 32)  # O below config-7's 72 at which C meets route (c)
 
 
-def schur_step_routes(device, n_all):
+def schur_step_routes(device, n_all, max_obs=128, parts=True):
     """The two Schur-step routes on the config-7-shaped problem with n_all
-    landmarks seen by every camera, on the same inputs: C alone
-    ("route_s"), and D + Pf + Q Q^T ("route_prepare"), with Pf (one
-    index_add_) and Q Q^T (one matmul) also timed alone."""
+    landmarks seen by every camera (tracks cut to max_obs), on the same
+    inputs: C alone ("route_s"), and D + Pf + Q Q^T ("route_prepare"), with
+    (parts) Pf (one index_add_) and Q Q^T (one matmul) also timed alone."""
     import torch
 
     from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat
     from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
     from bundleadjustment_tpu_torch.solvers.dense_ba import _to_cm
 
-    prob, cams, pts = track_dense(device, n_all=n_all)
+    prob, cams, pts = track_dense(device, n_all=n_all, max_obs=max_obs)
     cm = _to_cm(prob)
     O, L = cm.cam_t.shape
     K = cm.cam_fixed.shape[0]
@@ -711,26 +746,36 @@ def schur_step_routes(device, n_all):
         G_ = dk.schur_prepare(*p_args)[0]
         return dk.qqt(dk.pf_index_add(G_, cm.cam_t, K), K)
 
-    routes = {"n_all": n_all, "O": O, "slot_pairs": int(pairs)}
-    for label, fn in (("route_s", lambda: dk.schur_prepare_s(*p_args, red,
-                                                             cm.cam_fixed)),
-                      ("route_prepare", route_prepare),
-                      ("pf_index_add", lambda: dk.pf_index_add(G, cm.cam_t, K)),
-                      ("qqt_matmul", lambda: dk.qqt(Pf, K))):
-        ms, src = device_time(fn)
+    routes = {"n_all": n_all, "O": O, "n_obs": int(cm.valid_t.sum()),
+              "slot_pairs": int(pairs)}
+    # (label, call, a kernel it launches once per call: one full profile
+    # is then enough)
+    timed = [("route_s", lambda: dk.schur_prepare_s(*p_args, red, cm.cam_fixed),
+              "schur_tiles"),
+             ("route_prepare", route_prepare, "schur_prepare")]
+    if parts:
+        timed += [("pf_index_add", lambda: dk.pf_index_add(G, cm.cam_t, K), None),
+                  ("qqt_matmul", lambda: dk.qqt(Pf, K), None)]
+    for label, fn, kernel in timed:
+        ms, src = device_time(fn, kernel=kernel)
         routes[label] = {"ms": ms, "ms_source": src, "call_ms": cuda_time(fn)}
     return routes
 
 
 def phase_large_o_kernels(device, results):
     """C, K5 and D at the config-7 shape (n_all = 500), and the Schur-step
-    routes at every n_all of N_ALL_SWEEP. D's reported time is this
+    routes at every n_all of N_ALL_SWEEP and, at n_all = 500, with the
+    tracks cut to each O of SCHUR_GATE_SWEEP. D's reported time is this
     shape's."""
     prob, cams, pts = track_dense(device)
     res = compare_dense_kernels(prob, cams, pts, "config7",
                                 ("schur_prepare_s", "schur_qqt_partial",
                                  "schur_prepare", "chol_solve"))
     routes = {f"n_all_{n}": schur_step_routes(device, n) for n in N_ALL_SWEEP}
+    # the evidence for the O gate of route (s) (S_KERNEL_MAX_O): the tracks
+    # of the n_all = 500 map cut to O = 16 and 32
+    routes.update({f"O_{o}": schur_step_routes(device, 500, o, parts=False)
+                   for o in SCHUR_GATE_SWEEP})
     emit({"phase": "kernel", "shape": "config7", "K": int(cams.shape[0]),
           "L": int(pts.shape[0]), "O": int(prob.cam_idx.shape[1]),
           "n_obs": int(prob.valid.sum()), **res, "schur_step_routes": routes})

@@ -7,8 +7,9 @@ jax: `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
 Tolerances: kernel A bit-identical. Kernel E (blocked Cholesky solve):
 relative max error < 1e-5 against float64 on S = A A^T + N I, and the same
 against its plain version with the same panels, and bit-identical between
-two calls. Kernels B, C, K5 and D sum per-camera
-rows, S and b with float atomics, in an order that changes from run to run:
+two calls. Kernels C and K5 sum S and the rhs over tiles with shared-memory
+atomics, B and D per-camera rows with float atomics, in an order that
+changes from run to run. For all four:
 cost rtol 1e-5; red, Vu, g_p, W, S, b, red6 and G rtol 2e-4 / atol 2e-3
 relative to the max magnitude of each block
 (`torch_port_helpers.block_scale`); zv, vinv6 and Xt_new elementwise. Dense
@@ -174,6 +175,89 @@ def test_schur_prepare_global_atomics_match_plain_on_card(cuda_device):
     """Kernel D at 2,100 cameras (12 x 175 copies): its [6,K] table exceeds
     48 KB of shared memory and red6 is summed with global atomics."""
     _check_prepare(_prepare_args(cuda_device, 175))
+
+
+def _schur_case(device, case):
+    """Kernel C's inputs (lam, Vu, g_p, pt_valid, W18, cam_t, K, red27,
+    cam_fixed) of one card case of C / K5."""
+    if case.startswith("config7"):  # 71c / 10,842 / 156,774 obs, O = 72
+        n_all = int(case.split("_")[1])
+        sc = make_track_scene(n_all=n_all)
+        cf = np.zeros(71, bool)
+        cf[np.argsort(-np.bincount(sc.cam_idx, minlength=71), kind="stable")[:2]] = True
+        prob, dropped = td.densify_problem(sc.K4, sc.cam_idx, sc.pt_idx, sc.uv,
+                                           sc.sigma2, sc.valid, cf, sc.points_init.shape[0],
+                                           max_obs=128, device=device)
+        assert dropped == 0
+        cams = torch.from_numpy(sc.extr_init).to(device)
+        pts = torch.from_numpy(sc.points_init).to(device)
+    else:  # 12 cameras, or 600 (12 x 50 copies)
+        prob, cams, pts = _scene(12, 3000, 7, 0.4, device,
+                                 copies=50 if case == "K600" else 1)
+    cm = td._to_cm(prob)
+    O, L = cm.cam_t.shape
+    R = aa_to_rotmat(cams[:, :3]).contiguous()
+    _, red, Vu, gp, W = dk.eval_assemble_plain(
+        cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t, R,
+        cams[:, 3:].contiguous(), pts.T.contiguous())
+    args = (torch.tensor(1e-3, device=device), Vu, gp, cm.pt_valid,
+            W.reshape(18, O, L), cm.cam_t, cm.cam_fixed.shape[0], red, cm.cam_fixed)
+    if case == "K12_dup":  # every other landmark sees its first camera twice
+        cam_t = cm.cam_t.clone()
+        cam_t[1, ::2] = cam_t[0, ::2]
+        args = (*args[:5], cam_t, *args[6:])
+    if case == "L0":
+        args = (args[0], Vu[:, :0], gp[:, :0], cm.pt_valid[:0],
+                args[4][:, :, :0].contiguous(), cm.cam_t[:, :0].contiguous(),
+                *args[6:])
+    return args
+
+
+def _check_schur(got, ref, rhs):
+    assert_blocks_close("S", got[0], ref[0])
+    assert_blocks_close(rhs, got[3], ref[3])
+    for g, r in zip(got[1:3], ref[1:3]):  # zv, vinv6
+        assert_close(g, r)
+
+
+@pytest.mark.parametrize("case", ["config7_1", "config7_500", "K600", "K12",
+                                  "K12_dup", "L0"])
+def test_schur_s_kernels_match_plain_on_card(cuda_device, case):
+    """Kernel C and K5 against their plain versions: the config-7 shape
+    with 1 and 500 landmarks seen by every camera (3 tiles of 24: 71 is no
+    multiple of 24), 600 cameras (18 tiles of 34, one chunk), 12 cameras
+    (one tile), the same with landmarks that observe a camera twice, and
+    no landmarks. One wrapper call is one launch."""
+    args = _schur_case(cuda_device, case)
+    kernels.reset_launch_counts()
+    got_c = dk.schur_prepare_s(*args)
+    got_q = dk.schur_qqt_partial(*args[:7])
+    assert kernels.launch_counts()["schur_prepare_s"] == 1
+    assert kernels.launch_counts()["schur_qqt_partial"] == 1
+    _check_schur(got_c, dk.schur_prepare_s_plain(*args), "b")
+    _check_schur(got_q, dk.schur_qqt_partial_plain(*args[:7]), "red6")
+
+
+def test_schur_s_two_calls_agree_on_card(cuda_device):
+    """Two calls of C (and of K5) on the same inputs at the config-7 shape
+    (n_all = 500, the most contended tiles) agree to the per-block checks,
+    and zv and vinv6 bit for bit. S and the rhs need not be bit-identical:
+    the warps of a block add into shared entries in an order that changes
+    from run to run (csrc/schur_s.cu)."""
+    args = _schur_case(cuda_device, "config7_500")
+    for fn, a, rhs in ((dk.schur_prepare_s, args, "b"),
+                       (dk.schur_qqt_partial, args[:7], "red6")):
+        x, y = fn(*a), fn(*a)
+        _check_schur(x, y, rhs)
+        assert torch.equal(x[1], y[1]) and torch.equal(x[2], y[2])
+
+
+def test_schur_s_rejects_what_the_kernel_does_not_take(cuda_device):
+    args = _schur_case(cuda_device, "K12")
+    with pytest.raises(ValueError):
+        dk.schur_prepare_s(args[0], args[1].double(), *args[2:])
+    with pytest.raises(ValueError):
+        dk.schur_qqt_partial(*args[:3], args[3].cpu(), *args[4:7])
 
 
 def test_large_o_solve_kernels_match_plain_on_card(cuda_device):

@@ -47,7 +47,7 @@ def test_importing_the_port_loads_no_jax():
 def _port_files():
     files = [os.path.join(REPO, f) for f in (
         "chip_smoke.py", "profile_port.py", "profile_chol.py", "tests/test_torch_cuda.py",
-        "tests/torch_port_helpers.py")]
+        "tests/torch_port_helpers.py", "tools/trace_two_view.py")]
     for root, _dirs, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

@@ -46,8 +46,9 @@ def _frames(n, motion_step, width=160, height=120, fx=150.0):
     return fr, ds, K4
 
 
-def _run(pipe, ds, frames):
-    statuses = [pipe.process_frame(f) for f in ds]
+def _run(pipe, ds, frames, batched=False):
+    statuses = (pipe.process_frames(ds) if batched
+                else [pipe.process_frame(f) for f in ds])
     pipe.finalize()
     ts, mats = pipe.trajectory_cam_to_world()
     gt_ts = np.array([f["timestamp"] for f in frames])
@@ -89,6 +90,30 @@ def test_pipeline_matches_jax(case):
     assert abs(got[3] - ref[3]) < 0.01, (got[3], ref[3])
     if case == "keyframes_local_ba":
         assert "keyframe" in got[0]
+
+
+def test_default_tracking_matches_jax_default():
+    """The port's default run (one frame at a time) against the JAX
+    pipeline's default: `process_frames`, as its CLI drives it, at
+    track_batch=8 with the local-map pass on, whose batch-start landmark
+    snapshot sees descriptors up to 8 frames stale. 16 frames, so more than
+    one batch runs. Bounds: those the JAX package holds between its own
+    batched and per-frame paths (tests/test_pipeline.py,
+    test_batched_tlm_matches_per_frame)."""
+    frames, ds, K4 = _frames(16, 0.05)
+    base = dict(init_type="gtdepth", estimation="ba", n_features=200, n_levels=3,
+                local_ba=False, final_ba_outer=1, final_ba_iters=10)
+    jax_cfg = JaxConfig(**base)
+    assert jax_cfg.track_batch == 8 and jax_cfg.track_local_map
+    ref = _run(JaxPipeline(jax_cfg, K4, 160, 120), ds, frames, batched=True)
+    cfg = PipelineConfig(**base)
+    assert cfg.track_batch == 8 and cfg.track_local_map
+    got = _run(BundleAdjustmentPipeline(cfg, K4, 160, 120, device="cpu"), ds, frames)
+    assert got[0] == ref[0]
+    assert got[1] == ref[1]
+    assert abs(got[2] - ref[2]) <= max(0.02 * ref[2], 2), (got[2], ref[2])
+    assert got[3] < 0.06 and ref[3] < 0.06, (got[3], ref[3])
+    assert abs(got[3] - ref[3]) < 0.01, (got[3], ref[3])
 
 
 def _walk_jax_keys(pipe, seed):
