@@ -42,14 +42,16 @@ I64 = ctypes.c_longlong
 # C signature of every entry point, by library: {lib: {fn: [argtypes]}}
 SIGNATURES = {
     "hamming": {
-        # q, q_batch_stride, t, tvalid, n_batch, m1, m2, best, second, idx, stream
-        "hamming_top2": [P, I64, P, P, I32, I32, I32, P, P, P, P],
+        # q, q_batch_stride, t, tvalid, n_batch, m1, m2, chunk, n_chunks,
+        # part, best, second, idx, stream
+        "hamming_top2": [P, I64, P, P] + [I32] * 5 + [P] * 5,
     },
     "dense_eval": {
         # k4, R, t, dc, cam_t, uv_t, isig_t, valid_t, fixed_t, Xt,
         # W_prev, vinv6, gp_prev, pt_valid, O, L, K, robust, bs,
-        # red, cost, Vu, g_p, W, Xt_new, stream
-        "dense_eval_assemble": [P] * 14 + [I32] * 5 + [P] * 7,
+        # lanes_log2, warps, blocks, tile, n_tiles,
+        # slab, red, cost, Vu, g_p, W, Xt_new, stream
+        "dense_eval_assemble": [P] * 14 + [I32] * 10 + [P] * 8,
     },
     "schur_s": {
         # lam, red27, cam_fixed, Vu, g_p, pt_valid, W18, cam_t, O, L, K,

@@ -227,12 +227,18 @@ def _eval_cm(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt, robust):
     return rho, r, Jc, Jp
 
 
+def camera_rows(r, Jc):
+    """Each slot's 27 camera rows [27, O, L]: the 21 upper-triangle entries
+    of Jc^T Jc and the 6 of Jc^T r."""
+    rows = [Jc[0][i] * Jc[0][j] + Jc[1][i] * Jc[1][j] for i, j in TRIU6]
+    rows += [Jc[0][i] * r[0] + Jc[1][i] * r[1] for i in range(6)]
+    return torch.stack(rows)
+
+
 def _assemble_cm(cam_t, n_cams, r, Jc, Jp):
     """Undamped block reductions: red [K,27] (21 upper U rows + 6 g_c rows,
     summed per camera), Vu [6,L], g_p [3,L], W [6,3,O,L]."""
-    rows = [Jc[0][i] * Jc[0][j] + Jc[1][i] * Jc[1][j] for i, j in TRIU6]
-    rows += [Jc[0][i] * r[0] + Jc[1][i] * r[1] for i in range(6)]
-    stacked = torch.stack(rows).reshape(27, -1)
+    stacked = camera_rows(r, Jc).reshape(27, -1)
     red = torch.zeros((n_cams, 27), dtype=stacked.dtype,
                       device=stacked.device).index_add_(
         0, cam_t.reshape(-1).long(), stacked.T)

@@ -5,8 +5,9 @@ D (Schur prepare), with their plain PyTorch versions.
 Port of `bundleadjustment_tpu/solvers/pallas_dense_eval.py`:
 
 - `eval_assemble` / `eval_assemble_bs` replace `fused_eval_assemble` /
-  `fused_eval_assemble_bs` (one CUDA kernel, `csrc/dense_eval.cu`, with a
-  back-substitution flag);
+  `fused_eval_assemble_bs` (`csrc/dense_eval.cu`, with a back-substitution
+  flag: warps of (landmark, slot) lanes and per-block slabs of the
+  per-camera rows, laid out by the host plan `dense_eval_plan`);
 - `schur_prepare_s` replaces `fused_schur_prepare_s(..., red27=...,
   cam_fixed=...)`, the single-device `fold_u=True` path, in float32
   (`csrc/schur_s.cu`: tiles of S in shared memory, laid out by the host
@@ -24,11 +25,13 @@ outputs use the reference's component-major layouts, so a test can hand the
 same arrays to both packages.
 
 Tolerances against the plain versions (and against the JAX kernels): the
-kernels sum per-camera rows (B, D: global float atomics) and S entries (C,
-K5: shared-memory atomics within a block, then the chunks in a fixed order)
-in an order that changes from run to run; cost agrees to rtol 1e-5, the
-block outputs to rtol 2e-4 / atol 2e-3 relative to each block's own
-magnitude.
+kernels sum per-camera rows (B: per-warp tables, then per-block slabs in a
+fixed order, laid out by the host plan `dense_eval_plan`, whose blocking
+`plan=` repeats on the CPU; D: global float atomics) and S entries (C, K5:
+shared-memory atomics within a block, then the chunks in a fixed order) in
+another order than the plain versions (and, for D, C and K5, in an order
+that changes from run to run); cost agrees to rtol 1e-5, the block outputs
+to rtol 2e-4 / atol 2e-3 relative to each block's own magnitude.
 """
 
 from __future__ import annotations
@@ -64,26 +67,130 @@ def _backsub_plain(cam_t, dc, Xt, W18_prev, vinv6, gp_prev, pt_valid):
     return Xt + dp
 
 
+# Kernel B's blocking (csrc/dense_eval.cu): warps a block at most, cameras a
+# tile at most, warps an SM the plan aims at when it picks the lanes a
+# landmark and the grid, the shared memory of an SM, and the finishing
+# pass's strided partial sums an entry.
+DENSE_WARPS = 4
+DENSE_TILE_MAX = 128
+DENSE_FILL_WARPS = 8
+DENSE_SM_WARPS = 16
+SMEM_SM_BYTES = 233_472  # 228 KB
+DENSE_PARTS = 16
+
+DensePlan = namedtuple("DensePlan", "lanes warps blocks rounds tile n_tiles units "
+                       "smem_bytes scratch_bytes")
+
+
+def dense_eval_smem_bytes(warps, tile):
+    """Dynamic shared memory of a dense_eval_units block: a [tile][27] table
+    and a cost a warp."""
+    return 4 * (warps * tile * N_RED + warps)
+
+
+def dense_eval_plan(K, L, O, n_sm):
+    """Kernel B's launch plan, from the shapes and the SM count alone.
+
+    - lanes S: lanes a landmark, a power of two, at most 32 and at most O
+      rounded up to one; the smallest that gives ceil(L S / 32) warp units
+      >= DENSE_FILL_WARPS warps an SM;
+    - tile, n_tiles: the cameras in n_tiles = ceil(K / DENSE_TILE_MAX)
+      tiles of T = ceil(K / n_tiles), each a grid row of its own;
+    - warps: warps a block, DENSE_WARPS, halved while the units would give
+      less than a block an SM;
+    - blocks, rounds: the grid (blocks x n_tiles) holds at most
+      DENSE_SM_WARPS warps an SM (and what shared memory allows), at least
+      one block a tile; each warp takes `rounds` units at most, and blocks
+      = ceil(units / (warps rounds)) a tile; 0 when L = 0;
+    - scratch_bytes: the slabs, 27 T + 1 floats a block and tile."""
+    S_max = min(32, 1 << max(0, O - 1).bit_length())
+    S = 1
+    while S < S_max and -(-L * S // 32) < DENSE_FILL_WARPS * n_sm:
+        S *= 2
+    units = -(-L // (32 // S))
+    n_tiles = max(1, -(-K // DENSE_TILE_MAX))
+    T = max(1, -(-K // n_tiles))
+    warps = DENSE_WARPS
+    while warps > 1 and units < warps * n_sm:
+        warps //= 2
+    smem = dense_eval_smem_bytes(warps, T)
+    per_sm = max(1, min(DENSE_SM_WARPS // warps, SMEM_SM_BYTES // (smem + 1024)))
+    per_tile = max(1, n_sm * per_sm // n_tiles)  # the tiles share the grid
+    if L == 0:
+        rounds = blocks = 0
+    else:
+        rounds = -(-units // (warps * per_tile))
+        blocks = -(-units // (warps * rounds))
+    return DensePlan(S, warps, blocks, rounds, T, n_tiles, units, smem,
+                     4 * n_tiles * blocks * (N_RED * T + 1))
+
+
+def _blocked_sum(slabs):
+    """The finishing pass's order: DENSE_PARTS strided partial sums of the
+    block slabs (block b in part b % DENSE_PARTS, in increasing b), then
+    the parts in order."""
+    parts = []
+    for p in range(DENSE_PARTS):
+        acc = torch.zeros_like(slabs[0])
+        for x in slabs[p::DENSE_PARTS]:
+            acc = acc + x
+        parts.append(acc)
+    total = parts[0]
+    for x in parts[1:]:
+        total = total + x
+    return total
+
+
+def _red_cost_blocked(cam_t, n_cams, rho, r, Jc, plan):
+    """red [K,27] and the cost summed in kernel B's blocking: per block of
+    the plan (landmark l in unit l // (32 / S), unit u on warp u % (blocks
+    warps), warp w in block w // warps), then over the blocks as the
+    finishing pass sums them."""
+    from bundleadjustment_tpu_torch.solvers.dense_ba import camera_rows
+
+    L = cam_t.shape[1]
+    rows = camera_rows(r, Jc)
+    unit = torch.arange(L, device=cam_t.device) // (32 // plan.lanes)
+    block = (unit % max(1, plan.blocks * plan.warps)) // plan.warps
+    reds, costs = [], []
+    for b in range(plan.blocks):
+        sel = torch.nonzero(block == b).flatten()
+        reds.append(torch.zeros((n_cams, N_RED), dtype=rows.dtype,
+                                device=rows.device).index_add_(
+            0, cam_t[:, sel].reshape(-1).long(), rows[:, :, sel].reshape(N_RED, -1).T))
+        costs.append(torch.sum(rho[:, sel]))
+    if not reds:
+        return (torch.zeros((n_cams, N_RED), dtype=rho.dtype, device=rho.device),
+                torch.zeros((), dtype=rho.dtype, device=rho.device))
+    return _blocked_sum(reds), _blocked_sum(costs)
+
+
 def eval_assemble_plain(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t,
-                        Xt, robust=True):
+                        Xt, robust=True, plan=None):
     """Plain version of kernel B without back-substitution.
-    Returns (cost, red [K,27], Vu [6,L], g_p [3,L], W [6,3,O,L])."""
+    Returns (cost, red [K,27], Vu [6,L], g_p [3,L], W [6,3,O,L]). With a
+    `plan` (dense_eval_plan) red and the cost are summed in the kernel's
+    blocking: block by block, then the blocks in its finishing order."""
     from bundleadjustment_tpu_torch.solvers.dense_ba import _assemble_cm, _eval_cm
 
     rho, r, Jc, Jp = _eval_cm(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t,
                               R, t, Xt, robust)
     red, Vu, g_p, W = _assemble_cm(cam_t, R.shape[0], r, Jc, Jp)
-    return torch.sum(rho), red, Vu, g_p, W
+    if plan is None:
+        return torch.sum(rho), red, Vu, g_p, W
+    red, cost = _red_cost_blocked(cam_t, R.shape[0], rho, r, Jc, plan)
+    return cost, red, Vu, g_p, W
 
 
 def eval_assemble_bs_plain(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R,
                            t, dc, Xt, W18_prev, vinv6, gp_prev, pt_valid,
-                           robust=True):
+                           robust=True, plan=None):
     """Plain version of kernel B with back-substitution: evaluates at the
-    trial landmarks. Returns (cost, red, Vu, g_p, W, Xt_new [3,L])."""
+    trial landmarks. Returns (cost, red, Vu, g_p, W, Xt_new [3,L]); `plan`
+    as eval_assemble_plain."""
     Xt_new = _backsub_plain(cam_t, dc, Xt, W18_prev, vinv6, gp_prev, pt_valid)
     out = eval_assemble_plain(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t,
-                              R, t, Xt_new, robust)
+                              R, t, Xt_new, robust, plan)
     return (*out, Xt_new)
 
 
@@ -112,8 +219,11 @@ def _launch_eval(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt,
         bs_ptrs = [x.data_ptr() for x in bs]
     else:
         bs_ptrs = [None] * 5
-    red = torch.zeros((K, N_RED), dtype=f32, device=dev)
-    cost = torch.zeros((), dtype=f32, device=dev)
+    plan = dense_eval_plan(K, L, O, torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
+    slab = torch.empty((max(1, plan.scratch_bytes // 4),), dtype=f32, device=dev)
+    red = torch.empty((K, N_RED), dtype=f32, device=dev)
+    cost = torch.empty((), dtype=f32, device=dev)
     Vu = torch.empty((6, L), dtype=f32, device=dev)
     g_p = torch.empty((3, L), dtype=f32, device=dev)
     W = torch.empty((18, O, L), dtype=f32, device=dev)
@@ -124,13 +234,13 @@ def _launch_eval(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt,
         uv_t.data_ptr(), inv_sigma_t.data_ptr(), valid_t.data_ptr(),
         fixed_t.data_ptr(), Xt.data_ptr(), w_ptr, v_ptr, gp_ptr, ptv_ptr,
         O, L, K, int(bool(robust)), int(bs is not None),
-        red.data_ptr(), cost.data_ptr(), Vu.data_ptr(), g_p.data_ptr(),
-        W.data_ptr(), None if Xt_new is None else Xt_new.data_ptr(),
-        kernels.stream_of(cam_t))
+        plan.lanes.bit_length() - 1, plan.warps, plan.blocks, plan.tile,
+        plan.n_tiles, slab.data_ptr(), red.data_ptr(), cost.data_ptr(),
+        Vu.data_ptr(), g_p.data_ptr(), W.data_ptr(),
+        None if Xt_new is None else Xt_new.data_ptr(), kernels.stream_of(cam_t))
     kernels.check(code, "dense_eval_assemble")
-    if L:
-        name = "dense_eval_assemble" if bs is None else "dense_eval_assemble_bs"
-        kernels.LAUNCHES[name] += 1
+    name = "dense_eval_assemble" if bs is None else "dense_eval_assemble_bs"
+    kernels.LAUNCHES[name] += 1
     out = (cost, red, Vu, g_p, W.reshape(6, 3, O, L))
     return out if bs is None else (*out, Xt_new)
 

@@ -19,11 +19,15 @@ script exits non-zero without printing the final line:
    float64 numpy, beside the library call `cholesky_ex` + `cholesky_solve`,
    with its panel, grid and grid barriers), each timed as device time per
    call ("ms", torch.profiler kernel durations, or CUDA events where the
-   profiler delivers no kernel records: "ms_source" says which) and as
+   profiler delivers no kernel records: "ms_source" says which; for A, B
+   and C over 50 calls, with "ms_min", "ms_median", "ms_max" and each
+   kernel's figures in "per_kernel"; B and A also give their launch plan,
+   and B two calls with the same bits in red and cost) and as
    CUDA-event time per back-to-back call ("call_ms", which includes the
    host's per-call cost), beside its bound ("bound_ms": the larger of the
    bytes it must move over 3.35 TB/s and its operations over 67 TFLOP/s,
-   counted from this run's inputs). At the config-7 shape (71 cameras,
+   counted from this run's inputs; for A also its popcounts at 16 a clock
+   an SM, "bound_of" naming the largest). At the config-7 shape (71 cameras,
    10,842 landmarks, 156,774 observations, O = 72) it also times the two
    Schur-step routes on the same inputs: kernel C alone, and kernel D + Pf
    (index_add_) + Q Q^T (matmul), each part alone too. The records give
@@ -158,52 +162,92 @@ def cuda_time(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def device_time(fn, reps=10, tries=3, kernel=None):
-    """(ms, source): mean milliseconds of device time per call of fn(), the
-    durations of the CUDA kernels it launched from torch.profiler (host gaps
-    excluded), source "profiler". A profiler session now and then delivers
-    no kernel records, or not all of them. With `kernel` (a part of the
-    name of a kernel that fn launches once per call) a profile counts only
-    if it holds `reps` records of it; without, `tries` profiles are taken
-    and the one with the most kernel records counts. Where no profile
-    counts, the time is taken with CUDA events instead (cuda_time, source
-    "cuda_events")."""
+def kernel_name(name):
+    """A profiler record's kernel name without its return type, namespace and
+    arguments (at most 80 characters)."""
+    name = name.split("(anonymous namespace)::")[-1]
+    name = name[5:] if name.startswith("void ") else name
+    return name.split("(")[0][:80]
+
+
+def device_times(fn, reps=10, tries=3, kernel=None):
+    """Device time per call of fn() from torch.profiler's kernel records
+    (host gaps excluded). On an H100 a profiler session drops a few records
+    (2-3 of 120-180 in most sessions) or, now and then, all of one kernel's,
+    and in some sessions every kernel's durations come out at half of what
+    CUDA events around the same device-bound calls show (PERF.md). So
+    the times are built per kernel over `tries` sessions: in each, a
+    kernel's records give its min, median, max and mean, and its launches a
+    call (its records over `reps`, rounded, at least 1); "ms" is the sum
+    over the kernels of mean x launches, "ms_min", "ms_median", "ms_max"
+    the sums of their mins, medians and maxes, "per_kernel" each kernel's
+    figures. Of the sessions that hold the most kernels (and, with `kernel`,
+    a part of the name of a kernel that fn launches, that one), the one
+    whose "ms" is the median counts; "sessions_ms" lists each session's
+    "ms". Without a session that counts, the time is taken with CUDA events
+    instead (cuda_time, "ms_source": "cuda_events", no spread)."""
+    import statistics
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    best = None  # (kernel records, ms) of the fullest profile
+    sessions = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-        total = sum(e.device_time_total for e in kern) / 1e3 / reps
-        if total <= 0.0:
+        durs = {}
+        for e in prof.events():
+            if str(e.device_type).endswith("CUDA"):
+                durs.setdefault(kernel_name(e.name), []).append(
+                    e.time_range.elapsed_us() / 1e3)
+        if not durs or sum(map(sum, durs.values())) <= 0.0:
             continue
-        if kernel is not None:
-            if sum(e.count for e in kern if kernel in e.key) == reps:
-                return total, "profiler"
+        if kernel is not None and not any(kernel in n for n in durs):
             continue
-        records = sum(e.count for e in kern)
-        if best is None or records > best[0]:
-            best = (records, total)
-    if best is not None:
-        return best[1], "profiler"
-    return cuda_time(fn), "cuda_events"
+        per = {}
+        for name, d in durs.items():
+            per[name] = {"records": len(d), "launches": max(1, round(len(d) / reps)),
+                         "min": min(d), "median": statistics.median(d), "max": max(d),
+                         "mean": sum(d) / len(d)}
+        tot = lambda k, per=per: sum(v[k] * v["launches"] for v in per.values())
+        sessions.append({"ms": tot("mean"), "ms_source": "profiler", "ms_min": tot("min"),
+                         "ms_median": tot("median"), "ms_max": tot("max"),
+                         "per_kernel": per})
+    if not sessions:
+        return {"ms": cuda_time(fn), "ms_source": "cuda_events", "ms_min": None,
+                "ms_median": None, "ms_max": None, "per_kernel": None,
+                "sessions_ms": []}
+    most = max(len(x["per_kernel"]) for x in sessions)
+    full = sorted((x for x in sessions if len(x["per_kernel"]) == most),
+                  key=lambda x: x["ms"])
+    return {**full[(len(full) - 1) // 2], "sessions_ms": [x["ms"] for x in sessions]}
 
 
-def time_pair(kernel_fn, plain_fn):
+def device_time(fn, reps=10, tries=3, kernel=None):
+    """(ms, source): the mean of device_times."""
+    d = device_times(fn, reps, tries, kernel)
+    return d["ms"], d["ms_source"]
+
+
+# calls a profile of kernels A, B and C takes, for the spread of their
+# device times per call
+KERNEL_REPS = 50
+
+
+def time_pair(kernel_fn, plain_fn, reps=10):
     """Kernel and plain version timed in turns: device ms per call ("ms",
-    "plain_ms", with the source of each in "ms_source", "plain_ms_source")
-    and CUDA-event ms per back-to-back call ("call_ms", "plain_call_ms")."""
+    "plain_ms", with the source of each in "ms_source", "plain_ms_source";
+    the kernel's over `reps` calls with device_times' "ms_min",
+    "ms_median", "ms_max" and "per_kernel") and CUDA-event ms per
+    back-to-back call ("call_ms", "plain_call_ms")."""
     plain_ms, plain_src = device_time(plain_fn)
-    ms, src = device_time(kernel_fn)
-    return {"plain_ms": plain_ms, "ms": ms, "plain_ms_source": plain_src,
-            "ms_source": src, "call_ms": cuda_time(kernel_fn),
-            "plain_call_ms": cuda_time(plain_fn)}
+    k = device_times(kernel_fn, reps=reps)
+    return {"plain_ms": plain_ms, **k, "plain_ms_source": plain_src,
+            "call_ms": cuda_time(kernel_fn), "plain_call_ms": cuda_time(plain_fn)}
 
 
 def max_abs(a, b):
@@ -260,9 +304,11 @@ def check_blocks(tag, name, got, ref):
 # what this run's data needs, counted from the kernels' arithmetic (valid
 # observation slots, all-zero W slots skipped, a landmark's slot pairs once
 # each), against the float32 rate outside the tensor cores. Kernel A's
-# operations are integer (XOR, popcount, add, compare); the table has no
-# integer rate outside the tensor cores, so they are counted at the float32
-# rate, which understates A's bound.
+# operations are integer (XOR, popcount, add, compare): its bound is the
+# largest of its bytes, its 25 operations a pair at the float32 rate, and
+# its 8 popcounts a pair at POPC_PER_CLOCK_SM an SM and clock (sm_90's
+# issue rate for POPC, the CUDA programming guide's throughput table) at the
+# card's top SM clock (`nvidia-smi --query-gpu=clocks.max.sm`).
 
 EVAL_OPS = 320  # flops per valid observation of kernel B's eval + assembly
 BS_OPS = 36  # more per valid observation for the back-substitution
@@ -285,10 +331,34 @@ def bound(n_bytes, n_ops):
             "bytes": int(n_bytes), "ops": int(n_ops)}
 
 
+POPC_PER_CLOCK_SM = 16
+
+
+def sm_clock_max_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True).stdout.split()
+    return float(out[0]) * 1e6
+
+
 def hamming_bound(q, t, v, outs):
-    M1 = q.shape[1]
-    pairs = M1 * int(v.sum())  # 8 XOR + 8 popcount + 7 adds + 2 compares
-    return bound(nbytes(q, t, v, *outs), 25 * pairs)
+    """bound() of kernel A, and the larger of it and the popcounts' time:
+    "bound_of" says which of bytes, float32 operations (25 a pair: 8 XOR, 8
+    popcounts, 7 adds, 2 compares) and popcounts (8 a pair) it is."""
+    import torch
+
+    pairs = q.shape[1] * int(v.sum())
+    b = bound(nbytes(q, t, v, *outs), 25 * pairs)
+    b["bound_of"] = "bytes" if b["bound_by"] == "bytes" else "float32 operations"
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    clock = sm_clock_max_hz()
+    popc_ms = 8 * pairs / (POPC_PER_CLOCK_SM * n_sm * clock) * 1e3
+    b.update({"popcounts": 8 * pairs, "sm_clock_max_mhz": clock / 1e6,
+              "popcount_ms": popc_ms})
+    if popc_ms > b["bound_ms"]:
+        b.update({"bound_ms": popc_ms, "bound_by": "operations",
+                  "bound_of": "popcounts"})
+    return b
 
 
 def slot_counts(W18):
@@ -459,7 +529,11 @@ def _hamming_inputs(rng, B, M, device):
 def phase_hamming(rng, device, results):
     import torch
 
-    from bundleadjustment_tpu_torch.ops.hamming import hamming_top2, hamming_top2_plain
+    from bundleadjustment_tpu_torch.ops.hamming import (
+        hamming_plan,
+        hamming_top2,
+        hamming_top2_plain,
+    )
 
     rows = []
     for B in (1, 25):
@@ -470,10 +544,14 @@ def phase_hamming(rng, device, results):
         for g, r, n in zip(got, ref, ("best", "second", "idx")):
             if not torch.equal(g, r):
                 raise AssertionError(f"hamming_top2 B={B}: {n} not bit-identical")
+        plan = hamming_plan(B, 1000, 1000, torch.cuda.get_device_properties(0)
+                            .multi_processor_count)
         rows.append({"batch": B, "m1": 1000, "m2": 1000, "bit_identical": True,
                      **time_pair(lambda: hamming_top2(q, t, v),
-                                 lambda: hamming_top2_plain(q, t, v)),
-                     **hamming_bound(q, t, v, got), "library_ms": None})
+                                 lambda: hamming_top2_plain(q, t, v), reps=KERNEL_REPS),
+                     **hamming_bound(q, t, v, got), "library_ms": None,
+                     "plan": {"chunk": plan.chunk, "chunks": plan.n_chunks,
+                              "blocks": plan.blocks}})
     results["hamming_top2"] = {"max_abs_err": 0.0, "shapes": rows, **rows[-1]}
     emit({"phase": "kernel", "name": "hamming_top2", "shapes": rows})
 
@@ -519,22 +597,19 @@ def synthetic_dense(n_cams, n_pts, obs_per_pt, max_obs, device, copies=1,
     return prob, cams, pts
 
 
-def compare_dense_kernels(prob, cams, pts, tag, names=None):
-    """Kernels B (seed, bs), C, K5, D and E against their plain versions at
-    one shape (`names`: the kernels to check, default all). Returns {kernel:
-    {"max_abs_err", "ms", "plain_ms", ..., "bound_ms", "bound_by",
-    "library_ms"}}; no single PyTorch call computes B, C, K5 or D, so their
-    "library_ms" is None; E's is `compare_chol`'s."""
+def dense_inputs(prob, cams, pts, bs=True):
+    """The inputs of kernels B, C, K5 and D at one shape, from the plain
+    versions: "seed" (eval_assemble's), "c" (schur_prepare_s's), "p" (K5's
+    and D's), and with `bs` "bs" (eval_assemble_bs's, at the camera step
+    that the plain C and the library Cholesky give), beside the plain seed
+    outputs "seed_p", the plain C outputs "s_p" (with `bs`) and the shape."""
     import torch
 
     from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat
     from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
-    from bundleadjustment_tpu_torch.solvers.dense_ba import _to_cm, schur_route
+    from bundleadjustment_tpu_torch.solvers.dense_ba import _to_cm
     from bundleadjustment_tpu_torch.solvers.schur import cholesky_solve_nan
 
-    names = set(names or ("dense_eval_assemble", "dense_eval_assemble_bs",
-                          "schur_prepare_s", "schur_qqt_partial", "schur_prepare",
-                          "chol_solve"))
     cm = _to_cm(prob)
     O, L = cm.cam_t.shape
     K = cm.cam_fixed.shape[0]
@@ -542,32 +617,104 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
     t = cams[:, 3:].contiguous()
     Xt = pts.T.contiguous()
     args = (cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t)
-    n_valid = int(cm.valid_t.sum())
+    seed_p = dk.eval_assemble_plain(*args, R, t, Xt)
+    _, red, Vu, g_p, W = seed_p
+    W18 = W.reshape(18, O, L)
+    lam = torch.tensor(1e-4, device=cams.device)
+    c_args = (lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K, red, cm.cam_fixed)
+    out = {"cm": cm, "O": O, "L": L, "K": K, "W18": W18, "red": red, "lam": lam,
+           "seed": (*args, R, t, Xt), "seed_p": seed_p, "c": c_args,
+           "p": c_args[:7], "n_valid": int(cm.valid_t.sum())}
+    if bs:
+        s_p = dk.schur_prepare_s_plain(*c_args)
+        S, _zv, vinv6, b = s_p
+        dc = cholesky_solve_nan(S, b).reshape(6, K).T
+        dc = torch.where(cm.cam_fixed[:, None], torch.zeros_like(dc), dc).contiguous()
+        R_new = (aa_to_rotmat(dc[:, :3]) @ R).contiguous()
+        t_new = (t + dc[:, 3:]).contiguous()
+        out.update(s_p=s_p, bs=(*args, R_new, t_new, dc, Xt, W18, vinv6, g_p,
+                                cm.pt_valid))
+    return out
+
+
+def b_plan_fields(K, L, O):
+    """Kernel B's launch plan at this shape (dense_kernels.dense_eval_plan
+    on this card)."""
+    import torch
+
+    from bundleadjustment_tpu_torch.solvers.dense_kernels import dense_eval_plan
+
+    plan = dense_eval_plan(K, L, O, torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    return {"plan": {"lanes": plan.lanes, "warps": plan.warps,
+                     "blocks": plan.blocks, "tile": plan.tile,
+                     "tiles": plan.n_tiles, "rounds": plan.rounds,
+                     "smem_kb": plan.smem_bytes / 1024,
+                     "scratch_kb": plan.scratch_bytes / 1024}}
+
+
+def check_b_twice(tag, fn, got):
+    """Two calls of kernel B on the same inputs give bit-identical red and
+    cost."""
+    import torch
+
+    again = fn()
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError(f"{tag} B: two calls gave different red or cost")
+
+
+def check_b_kernels(tag, timing):
+    """A call of kernel B launches B's own kernels only (no zeroing
+    launches), as the profile of its timing shows."""
+    names = list(timing.get("per_kernel") or ())
+    if any("dense_eval" not in n for n in names):
+        raise AssertionError(f"{tag} B: a call launched other kernels: {names}")
+
+
+def compare_dense_kernels(prob, cams, pts, tag, names=None):
+    """Kernels B (seed, bs), C, K5, D and E against their plain versions at
+    one shape (`names`: the kernels to check, default all). Returns {kernel:
+    {"max_abs_err", "ms", "ms_min", "ms_median", "ms_max", "plain_ms", ...,
+    "bound_ms", "bound_by", "library_ms"}}; no single PyTorch call computes
+    B, C, K5 or D, so their "library_ms" is None; E's is `compare_chol`'s.
+    Kernel B is also called twice (red and cost bit-identical) and its
+    calls must launch its own kernels only."""
+    import torch
+
+    from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
+    from bundleadjustment_tpu_torch.solvers.dense_ba import schur_route
+
+    names = set(names or ("dense_eval_assemble", "dense_eval_assemble_bs",
+                          "schur_prepare_s", "schur_qqt_partial", "schur_prepare",
+                          "chol_solve"))
+    x = dense_inputs(prob, cams, pts,
+                     bs=bool(names & {"dense_eval_assemble_bs", "chol_solve"}))
+    cm, O, L, K, W18 = x["cm"], x["O"], x["L"], x["K"], x["W18"]
+    lam, red = x["lam"], x["red"]
+    seed, c_args, p_args = x["seed"], x["c"], x["p"]
     out = {}
 
-    seed_p = dk.eval_assemble_plain(*args, R, t, Xt)
     if "dense_eval_assemble" in names:
-        seed_k = dk.eval_assemble(*args, R, t, Xt)
+        seed_p = x["seed_p"]
+        seed_k = dk.eval_assemble(*seed)
         torch.cuda.synchronize()
         errs = [check_close(f"{tag} B cost", seed_k[0], seed_p[0],
                             rtol=COST_RTOL, atol=0.0)]
         errs += [check_blocks(f"{tag} B", n, g, r) for g, r, n in
                  zip(seed_k[1:], seed_p[1:], ("red", "Vu", "g_p", "W"))]
+        check_b_twice(tag, lambda: dk.eval_assemble(*seed), seed_k)
+        timing = time_pair(lambda: dk.eval_assemble(*seed),
+                           lambda: dk.eval_assemble_plain(*seed), reps=KERNEL_REPS)
+        check_b_kernels(tag, timing)
         out["dense_eval_assemble"] = {
-            "max_abs_err": max(errs),
-            **time_pair(lambda: dk.eval_assemble(*args, R, t, Xt),
-                        lambda: dk.eval_assemble_plain(*args, R, t, Xt)),
-            **bound(nbytes(*args, R, t, Xt, *seed_k), EVAL_OPS * n_valid),
-            "library_ms": None}
+            "max_abs_err": max(errs), "bit_identical_twice": True, **timing,
+            **bound(nbytes(*seed, *seed_k), EVAL_OPS * x["n_valid"]),
+            "library_ms": None, **b_plan_fields(K, L, O)}
 
-    cost, red, Vu, g_p, W = seed_p
-    W18 = W.reshape(18, O, L)
-    lam = torch.tensor(1e-4, device=cams.device)
-    c_args = (lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K, red, cm.cam_fixed)
-    c_ins = (lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, red, cm.cam_fixed)
-    if names & {"schur_prepare_s", "dense_eval_assemble_bs", "chol_solve"}:
-        s_p = dk.schur_prepare_s_plain(*c_args)
+    c_ins = (lam, *c_args[1:6], red, cm.cam_fixed)
     if "schur_prepare_s" in names:
+        s_p = x.get("s_p") or dk.schur_prepare_s_plain(*c_args)
         s_k = dk.schur_prepare_s(*c_args)
         torch.cuda.synchronize()
         errs = [check_blocks(f"{tag} C", "S", s_k[0], s_p[0]),
@@ -577,11 +724,10 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
         out["schur_prepare_s"] = {
             "max_abs_err": max(errs),
             **time_pair(lambda: dk.schur_prepare_s(*c_args),
-                        lambda: dk.schur_prepare_s_plain(*c_args)),
+                        lambda: dk.schur_prepare_s_plain(*c_args), reps=KERNEL_REPS),
             **schur_bound(c_ins, s_k, W18, L), "library_ms": None,
             **schur_plan_fields("schur_prepare_s", tag, K, L, O)}
 
-    p_args = c_args[:7]
     if "schur_qqt_partial" in names:
         q_k = dk.schur_qqt_partial(*p_args)
         q_p = dk.schur_qqt_partial_plain(*p_args)
@@ -625,12 +771,7 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
         out["chol_solve"] = compare_chol(tag, S_e.contiguous(), b_e.contiguous())
 
     if "dense_eval_assemble_bs" in names:
-        S, _zv, vinv6, b = s_p
-        dc = cholesky_solve_nan(S, b).reshape(6, K).T
-        dc = torch.where(cm.cam_fixed[:, None], torch.zeros_like(dc), dc).contiguous()
-        R_new = (aa_to_rotmat(dc[:, :3]) @ R).contiguous()
-        t_new = (t + dc[:, 3:]).contiguous()
-        bs_args = (*args, R_new, t_new, dc, Xt, W18, vinv6, g_p, cm.pt_valid)
+        bs_args = x["bs"]
         bs_k = dk.eval_assemble_bs(*bs_args)
         bs_p = dk.eval_assemble_bs_plain(*bs_args)
         torch.cuda.synchronize()
@@ -641,21 +782,24 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
         errs += [check_blocks(f"{tag} Bbs", n, g, r) for g, r, n in
                  zip(bs_k[1:5], bs_p[1:5], ("red", "Vu", "g_p", "W"))]
         errs += [check_close(f"{tag} Bbs Xt_new", bs_k[5], bs_p[5])]
+        check_b_twice(tag, lambda: dk.eval_assemble_bs(*bs_args), bs_k)
+        timing = time_pair(lambda: dk.eval_assemble_bs(*bs_args),
+                           lambda: dk.eval_assemble_bs_plain(*bs_args),
+                           reps=KERNEL_REPS)
+        check_b_kernels(tag, timing)
         out["dense_eval_assemble_bs"] = {
-            "max_abs_err": max(errs),
-            **time_pair(lambda: dk.eval_assemble_bs(*bs_args),
-                        lambda: dk.eval_assemble_bs_plain(*bs_args)),
-            **bound(nbytes(*bs_args, *bs_k), (EVAL_OPS + BS_OPS) * n_valid),
-            "library_ms": None}
+            "max_abs_err": max(errs), "bit_identical_twice": True, **timing,
+            **bound(nbytes(*bs_args, *bs_k), (EVAL_OPS + BS_OPS) * x["n_valid"]),
+            "library_ms": None, **b_plan_fields(K, L, O)}
     return out
 
 
 def phase_dense_kernels(device, results):
     """B, C, K5, D and E at the two solve shapes of the records, and at 600
-    cameras (12 cameras x 50 copies, 3k landmarks), where kernel B's [K,27]
-    table no longer fits its 48 KB of shared memory and the per-camera rows
-    go to global atomics; D alone at 2,100 cameras (12 x 175), where its
-    [6,K] table does not fit either. Each kernel's reported time is at
+    cameras (12 cameras x 50 copies, 3k landmarks), where kernel B cuts the
+    cameras into 5 tiles and C into 18; B and D alone at 2,100 cameras (12 x
+    175: B in 17 camera tiles, D's [6,K] table past its shared memory, so
+    global atomics). Each kernel's reported time is at
     128c/100k/O=8, D's at the config-7 shape (phase_large_o_kernels), E's at
     64c/10k/O=16 (N = 384, the shape of its path)."""
     shapes = {}
@@ -663,7 +807,9 @@ def phase_dense_kernels(device, results):
             "64c_10k_O16": (64, 10_000, 8, 16, 1, None),
             "128c_100k_O8": (128, 100_000, 6, 8, 1, None),
             "600c_3k_O16": (12, 3_000, None, 16, 50, None),
-            "2100c_3k_O16": (12, 3_000, None, 16, 175, ("schur_prepare",))}.items():
+            "2100c_3k_O16": (12, 3_000, None, 16, 175,
+                             ("schur_prepare", "dense_eval_assemble",
+                              "dense_eval_assemble_bs"))}.items():
         prob, cams, pts = synthetic_dense(nc, npt, opp, mo, device, copies)
         res = compare_dense_kernels(prob, cams, pts, tag, names)
         O = int(prob.cam_idx.shape[1])

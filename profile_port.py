@@ -34,8 +34,9 @@ import tempfile
 import time
 
 # the kernels of bundleadjustment_tpu_torch/csrc/*.cu, by their __global__ names
-OURS = ("hamming_top2_kernel", "dense_eval_kernel", "schur_s_init", "rhs_init",
-        "schur_s_accum", "schur_prepare_kernel")
+OURS = ("hamming_chunks", "hamming_merge", "dense_eval_units", "dense_eval_finish",
+        "dense_eval_backsub", "schur_tiles", "schur_finish", "schur_prepare_kernel",
+        "chol_solve_kernel")
 
 
 def emit(obj):

@@ -4,12 +4,14 @@ PyTorch version on the same CUDA tensors. They skip without a card.
 This file imports no jax, so it runs on a machine with a card and without
 jax: `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
 
-Tolerances: kernel A bit-identical. Kernel E (blocked Cholesky solve):
+Tolerances: kernel A bit-identical, also across its train chunks. Kernel
+B sums its per-camera rows and cost in a fixed blocking (two calls give the
+same bits), in another order than the plain version. Kernel E (blocked Cholesky solve):
 relative max error < 1e-5 against float64 on S = A A^T + N I, and the same
 against its plain version with the same panels, and bit-identical between
 two calls. Kernels C and K5 sum S and the rhs over tiles with shared-memory
-atomics, B and D per-camera rows with float atomics, in an order that
-changes from run to run. For all four:
+atomics, D per-camera rows with float atomics, in an order that
+changes from run to run. For B, C, K5 and D:
 cost rtol 1e-5; red, Vu, g_p, W, S, b, red6 and G rtol 2e-4 / atol 2e-3
 relative to the max magnitude of each block
 (`torch_port_helpers.block_scale`); zv, vinv6 and Xt_new elementwise. Dense
@@ -83,10 +85,140 @@ def test_hamming_kernel_matches_plain_on_card(cuda_device):
             assert torch.equal(g, r)
 
 
+def _hamming_chunk_case(rng, case):
+    """(q [1, M1, 8], t [B, M2, 8], valid [B, M2]) as tensors' numpy arrays,
+    and the plan kernel A takes on an H100 (132 SMs)."""
+    B, m1, m2 = {"tie_across_chunks": (1, 1000, 1000), "no_valid_row": (1, 1000, 1000),
+                 "chunk_without_valid": (1, 1000, 1000),
+                 "batch_25": (25, 1000, 1000)}[case]
+    t = rng.integers(0, 2**32, (B, m2, 8), dtype=np.uint32)
+    q = t[0, rng.integers(0, m2, m1)].copy()
+    q[::2] ^= rng.integers(0, 2**32, q[::2].shape, dtype=np.uint32) & np.uint32(0x00110011)
+    valid = rng.random((B, m2)) > 0.1
+    plan = th.hamming_plan(B, m1, m2, 132)
+    if case == "tie_across_chunks":  # twins across every chunk and quarter border
+        for a, e in th.hamming_pieces(m2, plan)[1:]:
+            if e > a:
+                t[:, a] = t[:, a - 1]
+                valid[:, a] = valid[:, a - 1] = True
+                q[a % m1] = t[0, a]
+    elif case == "no_valid_row":
+        valid[:] = False
+    elif case == "chunk_without_valid":
+        valid[:, plan.chunk:3 * plan.chunk] = False
+    return q[None], t, valid
+
+
+@pytest.mark.parametrize("case", ["tie_across_chunks", "no_valid_row",
+                                  "chunk_without_valid", "batch_25"])
+def test_hamming_kernel_chunks_match_plain_on_card(cuda_device, case):
+    """Kernel A over its train chunks, bit-identical to the plain version:
+    ties across chunk and warp-quarter borders, no valid train row, a chunk
+    without one, and 25 train sets against one query set."""
+    q, t, valid = _hamming_chunk_case(np.random.default_rng(1), case)
+    args = (as_tensor(q, cuda_device), as_tensor(t, cuda_device),
+            torch.from_numpy(valid).to(cuda_device))
+    got = th.hamming_top2(*args)
+    ref = th.hamming_top2_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if case == "no_valid_row":
+        assert (got[2] == -1).all() and torch.isinf(got[0]).all()
+
+
+# name: (cameras, landmarks, copies of each camera, all cameras fixed)
+B_CARD_CASES = {"K1": (1, 300, 1, False), "K8": (8, 1024, 1, False),
+                "K600": (12, 3000, 50, False), "K2100": (12, 3000, 175, False),
+                "K8_all_fixed": (8, 1024, 1, True), "L0": (8, 1024, 1, False)}
+
+
+def _b_card_inputs(device, case):
+    """Kernel B's seed and back-substitution arguments on the card; the
+    camera step is small (1e-5), so the trial cost stays well conditioned,
+    and zero at one camera (one observation a landmark: V is rank 2)."""
+    K, n_pts, copies, all_fixed = B_CARD_CASES[case]
+    sc = make_synthetic_scene(n_cams=K, n_pts=n_pts, pixel_noise=0.4, seed=7)
+    rng = np.random.default_rng(7)
+    cam_idx = (sc.cam_idx + K * rng.integers(0, copies, sc.cam_idx.shape)).astype(np.int32)
+    n = K * copies
+    cf = np.ones(n, bool) if all_fixed else (np.arange(n) == 0) & (n > 1)
+    prob, _ = td.densify_problem(sc.K4, cam_idx, sc.pt_idx, sc.uv, sc.sigma2, sc.valid,
+                                 cf, n_pts, max_obs=16, device=device)
+    cm = td._to_cm(prob)
+    cams = torch.from_numpy(np.tile(sc.extr_init, (copies, 1))).to(device)
+    R = aa_to_rotmat(cams[:, :3]).contiguous()
+    t = cams[:, 3:].contiguous()
+    Xt = torch.from_numpy(sc.points_init).to(device).T.contiguous()
+    args = (cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t)
+    _, _, Vu, gp, W = dk.eval_assemble_plain(*args, R, t, Xt)
+    O, L = cm.cam_t.shape
+    W18 = W.reshape(18, O, L)
+    vinv6 = dk.schur_prepare_plain(torch.tensor(1e-3, device=device), Vu, gp,
+                                   cm.pt_valid, W18, cm.cam_t, n)[2]
+    dc = torch.from_numpy(rng.normal(0, 1e-5, (n, 6)).astype(np.float32)).to(device)
+    dc = torch.where(cm.cam_fixed[:, None], torch.zeros_like(dc), dc)
+    if n == 1:
+        dc, gp = torch.zeros_like(dc), torch.zeros_like(gp)
+    R_new = (aa_to_rotmat(dc[:, :3]) @ R).contiguous()
+    t_new = (t + dc[:, 3:]).contiguous()
+    seed = (*args, R, t, Xt)
+    bs = (*args, R_new, t_new, dc.contiguous(), Xt, W18, vinv6, gp, cm.pt_valid)
+    if case == "L0":
+        cut = lambda x: x[..., :0].contiguous()
+        seed = (args[0], *map(cut, args[1:]), R, t, cut(Xt))
+        bs = (args[0], *map(cut, args[1:]), R_new, t_new, bs[8], cut(Xt),
+              *map(cut, bs[10:]))
+    return seed, bs
+
+
+@pytest.mark.parametrize("case", list(B_CARD_CASES))
+def test_dense_eval_kernel_matches_plain_on_card(cuda_device, case):
+    """Kernel B (seed and back-substitution) against its plain version, and
+    against the plain version summed in the kernel's blocking (`plan=`):
+    1, 8, 600 (5 camera tiles) and 2,100 cameras (17 tiles), every camera
+    fixed, and no landmarks (red and the cost written as zeros). One
+    wrapper call is one launch."""
+    seed, bs = _b_card_inputs(cuda_device, case)
+    O, L = seed[1].shape
+    plan = dk.dense_eval_plan(seed[6].shape[0], L, O, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    kernels.reset_launch_counts()
+    got, got_bs = dk.eval_assemble(*seed), dk.eval_assemble_bs(*bs)
+    assert kernels.launch_counts()["dense_eval_assemble"] == 1
+    assert kernels.launch_counts()["dense_eval_assemble_bs"] == 1
+    if case == "L0":
+        for g_all in (got, got_bs):
+            assert float(g_all[0]) == 0.0 and g_all[1].shape == (8, 27)
+            assert not g_all[1].any()
+            assert g_all[2].shape == (6, 0) and g_all[4].shape == (6, 3, O, 0)
+        return
+    for g_all, plain in ((got, dk.eval_assemble_plain), (got_bs, dk.eval_assemble_bs_plain)):
+        args = seed if plain is dk.eval_assemble_plain else bs
+        for ref in (plain(*args), plain(*args, plan=plan)):
+            assert_close(g_all[0], ref[0], rtol=1e-5, atol=0)
+            for g, r, name in zip(g_all[1:5], ref[1:5], ("red", "Vu", "g_p", "W")):
+                assert_blocks_close(name, g, r)
+            for g, r in zip(g_all[5:], ref[5:]):  # Xt_new
+                assert_close(g, r)
+    if case == "K8_all_fixed":
+        assert not got[1].any() and not got_bs[1].any()
+
+
+@pytest.mark.parametrize("case", ["K8", "K600"])
+def test_dense_eval_two_calls_bit_identical_on_card(cuda_device, case):
+    """Two calls of kernel B on the same inputs give the same bits in every
+    output, red and the cost included (no atomics)."""
+    seed, bs = _b_card_inputs(cuda_device, case)
+    for fn, args in ((dk.eval_assemble, seed), (dk.eval_assemble_bs, bs)):
+        x, y = fn(*args), fn(*args)
+        for a, b in zip(x, y):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("copies", [1, 50])
 def test_dense_kernels_match_plain_on_card(cuda_device, copies):
-    """12 cameras, and 600 (12 x 50 copies): there kernel B's [K,27] table
-    exceeds its 48 KB of shared memory and the rows go to global atomics."""
+    """B, C and B with back-substitution at 12 cameras, and at 600 (12 x 50
+    copies: kernel B in 5 camera tiles)."""
     prob, cams, pts = _scene(12, 3000, 7, 0.4, cuda_device, copies=copies)
     cm = td._to_cm(prob)
     K = cm.cam_fixed.shape[0]

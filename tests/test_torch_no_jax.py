@@ -1,7 +1,7 @@
 """The port runs where jax and the JAX package are absent: importing its
 modules adds no jax module and no module of `bundleadjustment_tpu`, and no
-file of the port (nor chip_smoke.py, profile_port.py, profile_chol.py or the
-card-only tests) imports either."""
+file of the port (nor chip_smoke.py, profile_port.py, profile_chol.py, the
+tools or the card-only tests) imports either."""
 
 import os
 import re
@@ -47,7 +47,8 @@ def test_importing_the_port_loads_no_jax():
 def _port_files():
     files = [os.path.join(REPO, f) for f in (
         "chip_smoke.py", "profile_port.py", "profile_chol.py", "tests/test_torch_cuda.py",
-        "tests/torch_port_helpers.py", "tools/trace_two_view.py")]
+        "tests/torch_port_helpers.py", "tools/trace_two_view.py",
+        "tools/parent_kernels.py")]
     for root, _dirs, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
