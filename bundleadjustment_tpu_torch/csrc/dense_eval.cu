@@ -56,46 +56,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp_groups.cuh"
+
 namespace {
 
 constexpr float kHuber = 2.4477f;
 constexpr float kCheirality = 1.0e4f;
 constexpr int kRed = 27;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kParts = 16;    // dense_eval_finish: partial sums an entry
 constexpr int kEntries = 16;  // dense_eval_finish: entries a block
 constexpr int kMaxSmem = 232448;
-
-// Sum v[27] over the lanes that hold the same key (>= 0) and add the sum
-// into table[key][27] from the group's lowest lane. The sum is a tree over
-// the group's lanes in lane order: the same bits for the same inputs.
-__device__ __forceinline__ void group_add(float* table, int key, float (&v)[kRed],
-                                          int lane) {
-  const unsigned peers = __match_any_sync(kFull, key);
-  const int maxg = __reduce_max_sync(kFull, key >= 0 ? __popc(peers) : 1);
-  if (maxg > 1) {
-    const unsigned above = lane == 31 ? 0u : peers & (kFull << (lane + 1));
-    int nxt = above ? __ffs(above) - 1 : 32;  // the lane of rank + d, d = 1
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    for (int d = 1; d < maxg; d <<= 1) {
-      const int src = nxt & 31;
-      const bool take = (rank & (2 * d - 1)) == 0 && nxt < 32;
-#pragma unroll
-      for (int n = 0; n < kRed; ++n) {
-        const float x = __shfl_sync(kFull, v[n], src);
-        if (take) v[n] += x;
-      }
-      const int nn = __shfl_sync(kFull, nxt, src);
-      nxt = nxt < 32 ? nn : 32;
-    }
-    if (key < 0 || rank != 0) return;
-  } else if (key < 0) {
-    return;
-  }
-  float* row = table + key * kRed;
-#pragma unroll
-  for (int n = 0; n < kRed; ++n) row[n] += v[n];
-}
 
 template <bool kBS>
 __global__ void dense_eval_units(

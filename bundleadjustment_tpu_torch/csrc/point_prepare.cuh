@@ -85,25 +85,30 @@ __device__ __forceinline__ PointPrep point_prepare(
   return p;
 }
 
-// W_o (18 values of slot s of W18 [18][O*L]) into W; G = W C. Returns
-// whether any W value is non-zero (an all-zero slot, invalid or of a fixed
-// camera, adds exactly zero to every sum).
-__device__ __forceinline__ bool load_w_g(const float* __restrict__ W18,
-                                         long long OL, long long s,
-                                         const float C[3][3], float W[18],
-                                         float G[6][3]) {
+// G = W C for one slot's W (18 values). Returns whether any W value is
+// non-zero (an all-zero slot, invalid or of a fixed camera, adds exactly
+// zero to every sum).
+__device__ __forceinline__ bool w_g(const float W[18], const float C[3][3],
+                                    float G[6][3]) {
   bool any = false;
 #pragma unroll
-  for (int c = 0; c < 18; ++c) {
-    W[c] = W18[c * OL + s];
-    any |= W[c] != 0.f;
-  }
+  for (int c = 0; c < 18; ++c) any |= W[c] != 0.f;
 #pragma unroll
   for (int i = 0; i < 6; ++i)
 #pragma unroll
     for (int m = 0; m < 3; ++m)
       G[i][m] = W[i * 3] * C[0][m] + W[i * 3 + 1] * C[1][m] + W[i * 3 + 2] * C[2][m];
   return any;
+}
+
+// W_o (18 values of slot s of W18 [18][O*L]) into W; G = W C (w_g).
+__device__ __forceinline__ bool load_w_g(const float* __restrict__ W18,
+                                         long long OL, long long s,
+                                         const float C[3][3], float W[18],
+                                         float G[6][3]) {
+#pragma unroll
+  for (int c = 0; c < 18; ++c) W[c] = W18[c * OL + s];
+  return w_g(W, C, G);
 }
 
 // (W_o zv)_i for i < 6: the slot's term of the camera rhs rows.

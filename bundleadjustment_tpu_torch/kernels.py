@@ -62,9 +62,9 @@ SIGNATURES = {
         "schur_qqt_partial": [P] * 6 + [I32] * 6 + [P] * 7,
     },
     "schur_prepare": {
-        # lam, Vu, g_p, pt_valid, W18, cam_t, O, L, K, G, zv, vinv6, red6,
-        # stream
-        "schur_prepare": [P] * 6 + [I32] * 3 + [P] * 5,
+        # lam, Vu, g_p, pt_valid, W18, cam_t, O, L, K, slots, chunks,
+        # warps, blocks, tile, n_tiles, slab, G, zv, vinv6, red6, stream
+        "schur_prepare": [P] * 6 + [I32] * 9 + [P] * 6,
     },
     "chol_solve": {
         # S, b, N, grid, work, x, stream

@@ -16,8 +16,9 @@ Port of `bundleadjustment_tpu/solvers/pallas_dense_eval.py`:
   the sharded engine's `fold_u=False` path (K5; kernel C's passes with
   nothing folded in, in C's (i, k) order);
 - `schur_prepare` replaces `fused_schur_prepare` (K6; `csrc/
-  schur_prepare.cu`), whose G feeds the outside `pf_index_add` / `qqt`
-  product for large O.
+  schur_prepare.cu`: warps of (landmark, slot chunk) units and per-block
+  slabs of red6, laid out by the host plan `schur_prepare_plan`), whose G
+  feeds the outside `pf_index_add` / `qqt` product for large O.
 
 Each wrapper dispatches on the device of its tensors: CPU tensors run the
 plain version below it, CUDA tensors launch the kernel or raise. Inputs and
@@ -25,13 +26,14 @@ outputs use the reference's component-major layouts, so a test can hand the
 same arrays to both packages.
 
 Tolerances against the plain versions (and against the JAX kernels): the
-kernels sum per-camera rows (B: per-warp tables, then per-block slabs in a
-fixed order, laid out by the host plan `dense_eval_plan`, whose blocking
-`plan=` repeats on the CPU; D: global float atomics) and S entries (C, K5:
-shared-memory atomics within a block, then the chunks in a fixed order) in
-another order than the plain versions (and, for D, C and K5, in an order
-that changes from run to run); cost agrees to rtol 1e-5, the block outputs
-to rtol 2e-4 / atol 2e-3 relative to each block's own magnitude.
+kernels sum per-camera rows (B and D: per-warp tables, then per-block slabs
+in a fixed order, laid out by the host plans `dense_eval_plan` and
+`schur_prepare_plan`, whose blocking `plan=` repeats on the CPU) and S
+entries (C, K5: shared-memory atomics within a block, then the chunks in a
+fixed order) in another order than the plain versions (and, for C and K5,
+in an order that changes from run to run); cost agrees to rtol 1e-5, the
+block outputs to rtol 2e-4 / atol 2e-3 relative to each block's own
+magnitude.
 """
 
 from __future__ import annotations
@@ -334,19 +336,111 @@ def damped_system(lam, red27, cam_fixed, S_qqt, red6):
     return S, -(g_c.T - red6).reshape(-1)
 
 
-def schur_prepare_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):
+def _wz_plain(W18, zv):
+    """(W zv) [6, O, L]: each slot's terms of the camera rhs rows."""
+    return torch.stack([sum(W18[i * 3 + j] * zv[j][None, :] for j in range(3))
+                        for i in range(6)])
+
+
+def _red6_plain(wz, cam_t, n_cams):
+    # index_add_ along dim 0, then [6, K]: along dim 1 it is slower on the
+    # card and sums in another order
+    return torch.zeros((n_cams, 6), dtype=wz.dtype, device=wz.device).index_add_(
+        0, cam_t.reshape(-1).long(), wz.reshape(6, -1).T).T.contiguous()
+
+
+def schur_prepare_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, plan=None):
     """Plain version of kernel D. Returns (G [18,O,L] = W chol(V^-1) in rows
-    i*3 + m, zv [3,L], vinv6 [6,L], red6 [6,K] = sum W zv per camera)."""
+    i*3 + m, zv [3,L], vinv6 [6,L], red6 [6,K] = sum W zv per camera). With
+    a `plan` (schur_prepare_plan) red6 is summed in the kernel's blocking:
+    block by block, then the blocks in its finishing order."""
     vinv6, C, zv = _point_prepare_plain(lam, Vu, g_p, pt_valid)
     G = torch.stack([sum(W18[i * 3 + j] * C[j][m][None, :] for j in range(3))
                      for i in range(6) for m in range(3)])  # [18, O, L]
-    wz = torch.stack([sum(W18[i * 3 + j] * zv[j][None, :] for j in range(3))
-                      for i in range(6)])  # [6, O, L]
-    # index_add_ along dim 0, then [6, K]: along dim 1 it is slower on the
-    # card and sums in another order
-    red6 = torch.zeros((n_cams, 6), dtype=wz.dtype, device=wz.device).index_add_(
-        0, cam_t.reshape(-1).long(), wz.reshape(6, -1).T).T.contiguous()
-    return G, zv, vinv6, red6
+    wz = _wz_plain(W18, zv)
+    if plan is None:
+        return G, zv, vinv6, _red6_plain(wz, cam_t, n_cams)
+    return G, zv, vinv6, _red6_blocked(wz, cam_t, n_cams, plan)
+
+
+# Kernel D's blocking (csrc/schur_prepare.cu): warps a block at most, warps
+# an SM the plan aims at when it cuts a landmark's slots into chunks, warps
+# an SM the grid holds at most, and cameras a tile at most.
+PREP_WARPS = 8
+PREP_FILL_WARPS = 16
+PREP_SM_WARPS = 32
+PREP_TILE_MAX = 512
+PREP_SCRATCH_CAP = 16 << 20
+
+PreparePlan = namedtuple("PreparePlan", "slots chunks warps blocks rounds tile "
+                         "n_tiles units smem_bytes scratch_bytes")
+
+
+def schur_prepare_smem_bytes(warps, tile):
+    """Dynamic shared memory of a schur_prepare_units block: a [tile][6]
+    table a warp."""
+    return 4 * warps * tile * 6
+
+
+def schur_prepare_plan(K, L, O, n_sm):
+    """Kernel D's launch plan, from the shapes and the SM count alone.
+
+    - tile, n_tiles: the cameras in n_tiles = ceil(K / PREP_TILE_MAX) tiles
+      of T = ceil(K / n_tiles), each a grid row of its own that walks every
+      unit;
+    - units: 32 consecutive landmarks (a lane each) over a chunk of `slots`
+      consecutive slots; a landmark's O slots are cut into `chunks` chunks,
+      as few as give ceil(L / 32) * chunks * n_tiles >= PREP_FILL_WARPS
+      warps an SM (at most O), so one landmark takes `chunks` warps a tile;
+    - warps: warps a block, PREP_WARPS, halved while the units of every tile
+      would give less than a block an SM;
+    - blocks, rounds: the grid (blocks x n_tiles) holds at most
+      PREP_SM_WARPS warps an SM (and what shared memory allows), at least
+      one block a tile; each warp takes `rounds` units at most (unit u on
+      warp u % (blocks warps)), and blocks = ceil(units / (warps rounds)) a
+      tile, and no more blocks than PREP_SCRATCH_CAP holds slabs of (at
+      least one); 0 when L = 0;
+    - scratch_bytes: the slabs, 6 T floats a block and tile."""
+    groups = -(-L // 32)
+    n_tiles = max(1, -(-K // PREP_TILE_MAX))
+    T = max(1, -(-K // n_tiles))
+    split = max(1, min(O, -(-PREP_FILL_WARPS * n_sm // max(1, groups * n_tiles))))
+    slots = max(1, -(-O // split))
+    chunks = max(1, -(-O // slots))
+    units = groups * chunks
+    warps = PREP_WARPS
+    while warps > 1 and units * n_tiles < warps * n_sm:
+        warps //= 2
+    smem = schur_prepare_smem_bytes(warps, T)
+    per_sm = max(1, min(PREP_SM_WARPS // warps, SMEM_SM_BYTES // (smem + 1024)))
+    per_tile = max(1, n_sm * per_sm // n_tiles)  # the tiles share the grid
+    per_tile = min(per_tile, max(1, PREP_SCRATCH_CAP // (24 * n_tiles * T)))
+    if L == 0:
+        rounds = blocks = 0
+    else:
+        rounds = -(-units // (warps * per_tile))
+        blocks = -(-units // (warps * rounds))
+    return PreparePlan(slots, chunks, warps, blocks, rounds, T, n_tiles, units,
+                       smem, 4 * n_tiles * blocks * 6 * T)
+
+
+def _red6_blocked(wz, cam_t, n_cams, plan):
+    """red6 [6,K] summed in kernel D's blocking: per block of the plan (slot
+    o of landmark l in unit (l // 32) chunks + o // slots, unit u on warp u %
+    (blocks warps), warp w in block w // warps), then over the blocks as the
+    finishing pass sums them."""
+    O, L = cam_t.shape
+    if plan.blocks == 0:
+        return torch.zeros((6, n_cams), dtype=wz.dtype, device=wz.device)
+    o = torch.arange(O, device=cam_t.device)[:, None]
+    l = torch.arange(L, device=cam_t.device)[None, :]
+    unit = (l // 32) * plan.chunks + o // plan.slots
+    block = (unit % (plan.blocks * plan.warps)) // plan.warps  # [O, L]
+    reds = []
+    for b in range(plan.blocks):
+        sel = block == b
+        reds.append(_red6_plain(wz[:, sel], cam_t[sel], n_cams))
+    return _blocked_sum(reds)
 
 
 def pf_index_add(G, cam_t, n_cams):
@@ -489,9 +583,7 @@ def schur_qqt_partial_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams,
     G, zv, vinv6, red6 = schur_prepare_plain(lam, Vu, g_p, pt_valid, W18,
                                              cam_t, n_cams)
     if plan is not None:
-        wz = torch.stack([sum(W18[i * 3 + j] * zv[j][None, :] for j in range(3))
-                          for i in range(6)])
-        S_qqt, red6 = _qqt_tiled(G, wz, cam_t, n_cams, plan)
+        S_qqt, red6 = _qqt_tiled(G, _wz_plain(W18, zv), cam_t, n_cams, plan)
         return S_qqt, zv, vinv6, red6
     return qqt(pf_index_add(G, cam_t, n_cams), n_cams), zv, vinv6, red6
 
@@ -598,14 +690,19 @@ def schur_prepare(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):
     K = n_cams
     dev = cam_t.device
     f32 = torch.float32
+    plan = schur_prepare_plan(K, L, O, torch.cuda.get_device_properties(dev)
+                              .multi_processor_count)
+    slab = torch.empty((max(1, plan.scratch_bytes // 4),), dtype=f32, device=dev)
     G = torch.empty((18, O, L), dtype=f32, device=dev)
     zv = torch.empty((3, L), dtype=f32, device=dev)
     vinv6 = torch.empty((6, L), dtype=f32, device=dev)
     red6 = torch.empty((6, K), dtype=f32, device=dev)
     code = kernels.lib("schur_prepare").schur_prepare(
         lam.data_ptr(), Vu.data_ptr(), g_p.data_ptr(), pt_valid.data_ptr(),
-        W18.data_ptr(), cam_t.data_ptr(), O, L, K, G.data_ptr(), zv.data_ptr(),
-        vinv6.data_ptr(), red6.data_ptr(), kernels.stream_of(cam_t))
+        W18.data_ptr(), cam_t.data_ptr(), O, L, K, plan.slots, plan.chunks,
+        plan.warps, plan.blocks, plan.tile, plan.n_tiles, slab.data_ptr(),
+        G.data_ptr(), zv.data_ptr(), vinv6.data_ptr(), red6.data_ptr(),
+        kernels.stream_of(cam_t))
     kernels.check(code, "schur_prepare")
     kernels.LAUNCHES["schur_prepare"] += 1
     return G, zv, vinv6, red6

@@ -19,10 +19,11 @@ script exits non-zero without printing the final line:
    float64 numpy, beside the library call `cholesky_ex` + `cholesky_solve`,
    with its panel, grid and grid barriers), each timed as device time per
    call ("ms", torch.profiler kernel durations, or CUDA events where the
-   profiler delivers no kernel records: "ms_source" says which; for A, B
-   and C over 50 calls, with "ms_min", "ms_median", "ms_max" and each
-   kernel's figures in "per_kernel"; B and A also give their launch plan,
-   and B two calls with the same bits in red and cost) and as
+   profiler delivers no kernel records: "ms_source" says which; for A, B,
+   C and D over 50 calls, with "ms_min", "ms_median", "ms_max" and each
+   kernel's figures in "per_kernel"; B, D and A also give their launch
+   plan, B two calls with the same bits in red and cost, D in every output,
+   and D its device ms before its plan ("old_ms", a fixed figure)) and as
    CUDA-event time per back-to-back call ("call_ms", which includes the
    host's per-call cost), beside its bound ("bound_ms": the larger of the
    bytes it must move over 3.35 TB/s and its operations over 67 TFLOP/s,
@@ -128,7 +129,7 @@ MIN_LAUNCHES = {"chol_solve": 10}
 # float32 outside the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
-RTOL, ATOL = 2e-4, 2e-3  # block outputs (float atomics reorder the sums)
+RTOL, ATOL = 2e-4, 2e-3  # block outputs (the kernels sum in other orders)
 COST_RTOL = 1e-5
 
 
@@ -271,9 +272,9 @@ def check_close(name, got, ref, rtol=RTOL, atol=ATOL, scale=1.0):
 
 def block_scale(name, ref):
     """Magnitude of each block of a kernel B / C output, broadcastable against
-    it. The kernels sum in another order than the plain versions (float
-    atomics for the per-camera rows, S and b; a loop over the O slots for Vu
-    and g_p), and these sums cancel, so near-zero entries differ by float32
+    it. The kernels sum in another order than the plain versions (per-warp
+    tables and per-block slabs for the per-camera rows, atomics for S and b;
+    a loop over the O slots for Vu and g_p), and these sums cancel, so near-zero entries differ by float32
     round-off of their block's magnitude, not of their own. Each block is
     held to rtol 2e-4 / atol 2e-3 relative to its own max: red's 21 upper-U
     columns and its 6 g_c columns apart, each row of Vu, g_p and W, and S and
@@ -393,6 +394,30 @@ OLD_SCHUR_MS = {
                         "config7": 12.54, "pipeline_final_ba": 0.03342},
     "schur_qqt_partial": {"128c_100k_O8": 1.183, "config7": 12.55,
                           "pipeline_final_ba": 0.03741}}
+
+
+# kernel D before this design (one thread per landmark, float atomics into
+# red6), device ms per call by shape: PERF.md's K6 rows, from chip_smoke.py
+# on an H100 80GB HBM3 at 700 W; fixed reference figures, not measured here
+OLD_PREPARE_MS = {"128c_100k_O8": 0.05785, "2100c_3k_O16": 0.01888,
+                  "config7": 0.2507, "pipeline_final_ba": 0.04623}
+
+
+def prepare_plan_fields(tag, K, L, O):
+    """Kernel D's launch plan at this shape (dense_kernels.
+    schur_prepare_plan on this card) and its time before this design."""
+    import torch
+
+    from bundleadjustment_tpu_torch.solvers.dense_kernels import schur_prepare_plan
+
+    plan = schur_prepare_plan(K, L, O, torch.cuda.get_device_properties(0)
+                              .multi_processor_count)
+    return {"plan": {"slots": plan.slots, "chunks": plan.chunks,
+                     "warps": plan.warps, "blocks": plan.blocks,
+                     "rounds": plan.rounds, "tile": plan.tile,
+                     "tiles": plan.n_tiles, "smem_kb": plan.smem_bytes / 1024,
+                     "scratch_kb": plan.scratch_bytes / 1024},
+            "old_ms": OLD_PREPARE_MS.get(tag)}
 
 
 def schur_plan_fields(name, tag, K, L, O):
@@ -653,23 +678,24 @@ def b_plan_fields(K, L, O):
                      "scratch_kb": plan.scratch_bytes / 1024}}
 
 
-def check_b_twice(tag, fn, got):
-    """Two calls of kernel B on the same inputs give bit-identical red and
-    cost."""
+def check_twice(tag, label, fn, got, n=2):
+    """Two calls of a kernel on the same inputs give bit-identical outputs
+    (the first `n` of them)."""
     import torch
 
     again = fn()
     torch.cuda.synchronize()
-    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
-        raise AssertionError(f"{tag} B: two calls gave different red or cost")
+    if not all(torch.equal(a, b) for a, b in zip(got[:n], again[:n])):
+        raise AssertionError(f"{tag} {label}: two calls gave different bits")
 
 
-def check_b_kernels(tag, timing):
-    """A call of kernel B launches B's own kernels only (no zeroing
-    launches), as the profile of its timing shows."""
+def check_own_kernels(tag, label, timing, part):
+    """A call of a kernel launches its own kernels only (no zeroing
+    launches), as the profile of its timing shows: each kernel's name holds
+    `part`."""
     names = list(timing.get("per_kernel") or ())
-    if any("dense_eval" not in n for n in names):
-        raise AssertionError(f"{tag} B: a call launched other kernels: {names}")
+    if any(part not in n for n in names):
+        raise AssertionError(f"{tag} {label}: a call launched other kernels: {names}")
 
 
 def compare_dense_kernels(prob, cams, pts, tag, names=None):
@@ -678,8 +704,9 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
     {"max_abs_err", "ms", "ms_min", "ms_median", "ms_max", "plain_ms", ...,
     "bound_ms", "bound_by", "library_ms"}}; no single PyTorch call computes
     B, C, K5 or D, so their "library_ms" is None; E's is `compare_chol`'s.
-    Kernel B is also called twice (red and cost bit-identical) and its
-    calls must launch its own kernels only."""
+    Kernels B and D are also called twice (B's red and cost, and every
+    output of D, bit-identical) and their calls must launch their own
+    kernels only."""
     import torch
 
     from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
@@ -703,10 +730,10 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
                             rtol=COST_RTOL, atol=0.0)]
         errs += [check_blocks(f"{tag} B", n, g, r) for g, r, n in
                  zip(seed_k[1:], seed_p[1:], ("red", "Vu", "g_p", "W"))]
-        check_b_twice(tag, lambda: dk.eval_assemble(*seed), seed_k)
+        check_twice(tag, "B", lambda: dk.eval_assemble(*seed), seed_k)
         timing = time_pair(lambda: dk.eval_assemble(*seed),
                            lambda: dk.eval_assemble_plain(*seed), reps=KERNEL_REPS)
-        check_b_kernels(tag, timing)
+        check_own_kernels(tag, "B", timing, "dense_eval")
         out["dense_eval_assemble"] = {
             "max_abs_err": max(errs), "bit_identical_twice": True, **timing,
             **bound(nbytes(*seed, *seed_k), EVAL_OPS * x["n_valid"]),
@@ -752,11 +779,14 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
                 check_blocks(f"{tag} D", "red6", d_k[3], d_p[3]),
                 check_close(f"{tag} D zv", d_k[1], d_p[1]),
                 check_close(f"{tag} D vinv6", d_k[2], d_p[2])]
+        check_twice(tag, "D", lambda: dk.schur_prepare(*p_args), d_k, n=4)
+        timing = time_pair(lambda: dk.schur_prepare(*p_args),
+                           lambda: dk.schur_prepare_plain(*p_args), reps=KERNEL_REPS)
+        check_own_kernels(tag, "D", timing, "schur_prepare")
         out["schur_prepare"] = {
-            "max_abs_err": max(errs),
-            **time_pair(lambda: dk.schur_prepare(*p_args),
-                        lambda: dk.schur_prepare_plain(*p_args)),
-            **prepare_bound(p_args[:6], d_k, W18, L), "library_ms": None}
+            "max_abs_err": max(errs), "bit_identical_twice": True, **timing,
+            **prepare_bound(p_args[:6], d_k, W18, L), "library_ms": None,
+            **prepare_plan_fields(tag, K, L, O)}
 
     if "chol_solve" in names:
         # the system the solve of this shape hands to the Cholesky: kernel
@@ -782,11 +812,11 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
         errs += [check_blocks(f"{tag} Bbs", n, g, r) for g, r, n in
                  zip(bs_k[1:5], bs_p[1:5], ("red", "Vu", "g_p", "W"))]
         errs += [check_close(f"{tag} Bbs Xt_new", bs_k[5], bs_p[5])]
-        check_b_twice(tag, lambda: dk.eval_assemble_bs(*bs_args), bs_k)
+        check_twice(tag, "B", lambda: dk.eval_assemble_bs(*bs_args), bs_k)
         timing = time_pair(lambda: dk.eval_assemble_bs(*bs_args),
                            lambda: dk.eval_assemble_bs_plain(*bs_args),
                            reps=KERNEL_REPS)
-        check_b_kernels(tag, timing)
+        check_own_kernels(tag, "B", timing, "dense_eval")
         out["dense_eval_assemble_bs"] = {
             "max_abs_err": max(errs), "bit_identical_twice": True, **timing,
             **bound(nbytes(*bs_args, *bs_k), (EVAL_OPS + BS_OPS) * x["n_valid"]),
@@ -798,8 +828,7 @@ def phase_dense_kernels(device, results):
     """B, C, K5, D and E at the two solve shapes of the records, and at 600
     cameras (12 cameras x 50 copies, 3k landmarks), where kernel B cuts the
     cameras into 5 tiles and C into 18; B and D alone at 2,100 cameras (12 x
-    175: B in 17 camera tiles, D's [6,K] table past its shared memory, so
-    global atomics). Each kernel's reported time is at
+    175: B in 17 camera tiles, D in 5). Each kernel's reported time is at
     128c/100k/O=8, D's at the config-7 shape (phase_large_o_kernels), E's at
     64c/10k/O=16 (N = 384, the shape of its path)."""
     shapes = {}

@@ -9,9 +9,10 @@ B sums its per-camera rows and cost in a fixed blocking (two calls give the
 same bits), in another order than the plain version. Kernel E (blocked Cholesky solve):
 relative max error < 1e-5 against float64 on S = A A^T + N I, and the same
 against its plain version with the same panels, and bit-identical between
-two calls. Kernels C and K5 sum S and the rhs over tiles with shared-memory
-atomics, D per-camera rows with float atomics, in an order that
-changes from run to run. For B, C, K5 and D:
+two calls. Kernel D sums red6 in a fixed blocking as B does (two calls give
+the same bits). Kernels C and K5 sum S and the rhs over tiles with
+shared-memory atomics, in an order that changes from run to run. For B, C,
+K5 and D:
 cost rtol 1e-5; red, Vu, g_p, W, S, b, red6 and G rtol 2e-4 / atol 2e-3
 relative to the max magnitude of each block
 (`torch_port_helpers.block_scale`); zv, vinv6 and Xt_new elementwise. Dense
@@ -304,9 +305,79 @@ def test_schur_partial_and_prepare_match_plain_on_card(cuda_device, copies):
 
 
 def test_schur_prepare_global_atomics_match_plain_on_card(cuda_device):
-    """Kernel D at 2,100 cameras (12 x 175 copies): its [6,K] table exceeds
-    48 KB of shared memory and red6 is summed with global atomics."""
+    """Kernel D at 2,100 cameras (12 x 175 copies), where the parent design
+    summed red6 with global atomics: now in 5 camera tiles of 420."""
     _check_prepare(_prepare_args(cuda_device, 175))
+
+
+D_CARD_CASES = ["K1", "K8", "K12", "K600", "K2100", "config7_1", "config7_500",
+                "K8_all_fixed", "L0"]
+
+
+def _d_card_args(device, case):
+    """Kernel D's arguments of one card case: the config-7 shape (71
+    cameras, 10,842 landmarks, O = 72) with 1 or 500 landmarks seen by every
+    camera, K5's 12-camera inputs, or from kernel B's card cases (1 free
+    camera, 8, 600 and 2,100 cameras, every camera fixed, no landmarks)."""
+    if case.startswith("config7"):
+        args = _schur_case(device, case)[:7]
+        assert args[5].shape[0] == 72
+        return args
+    if case == "K12":
+        return _prepare_args(device, 1)
+    seed, _ = _b_card_inputs(device, case)
+    _, _, Vu, gp, W = dk.eval_assemble_plain(*seed)
+    cam_t = seed[1]
+    O, L = cam_t.shape
+    return (torch.tensor(1e-3, device=device), Vu, gp, seed[4].any(0),
+            W.reshape(18, O, L), cam_t, seed[6].shape[0])
+
+
+@pytest.mark.parametrize("case", list(D_CARD_CASES))
+def test_schur_prepare_kernel_matches_planned_plain_on_card(cuda_device, case):
+    """Kernel D against its plain version and against the plain version
+    summed in the kernel's blocking (`plan=`): 1, 8, 12, 600 (2 camera
+    tiles) and 2,100 cameras (5 tiles), the config-7 shape with 1 and 500
+    landmarks seen by every camera, every camera fixed, and no landmarks
+    (red6 written as zeros). One wrapper call is one launch; two calls give
+    the same bits in every output."""
+    args = _d_card_args(cuda_device, case)
+    O, L = args[5].shape
+    K = args[6]
+    plan = dk.schur_prepare_plan(K, L, O, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    kernels.reset_launch_counts()
+    got = dk.schur_prepare(*args)
+    assert kernels.launch_counts()["schur_prepare"] == 1
+    again = dk.schur_prepare(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if case == "L0":
+        assert got[3].shape == (6, K) and not got[3].any()
+        assert got[0].shape == (18, O, 0)
+        return
+    for ref in (dk.schur_prepare_plain(*args), dk.schur_prepare_plain(*args, plan=plan)):
+        assert_blocks_close("W", got[0].reshape(6, 3, O, L), ref[0].reshape(6, 3, O, L))
+        assert_blocks_close("red6", got[3], ref[3])
+        for g, r in zip(got[1:3], ref[1:3]):  # zv, vinv6
+            assert_close(g, r)
+    if case == "K8_all_fixed":
+        assert not got[0].any() and not got[3].any()
+
+
+def test_schur_prepare_launches_only_its_own_kernels_on_card(cuda_device):
+    """A call of kernel D launches D's own kernels (the units and the
+    finishing pass) and nothing else: no zeroing launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _d_card_args(cuda_device, "K12")
+    dk.schur_prepare(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dk.schur_prepare(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    assert names and all("schur_prepare" in n for n in names), names
 
 
 def _schur_case(device, case):

@@ -1,35 +1,41 @@
 #!/usr/bin/env python3
-"""Kernels A (Hamming top-2) and B (dense eval + assembly) of a parent
-commit against the tree's, and kernel C beside them, on one NVIDIA GPU.
+"""Kernel D (Schur prepare) of a parent commit against the tree's, and kernel
+B's bits beside it, on one NVIDIA GPU.
 
     python3 tools/parent_kernels.py extract --rev REV [--out _chip/parent]
-        # in a git checkout: writes the parent's csrc sources of A, B and C
+        # in a git checkout: writes the parent's csrc sources of B and D
         # (git show REV:...) into --out
     python3 tools/parent_kernels.py time [--parent _chip/parent] [--pipeline]
-        [--launches 60] [--shapes 64c 128c ...] [--out FILE]
+        [--launches 60] [--shapes config7 64c 128c ...] [--out FILE]
         # on the card's machine: builds those sources with the package's
         # nvcc flags into <parent>/_build, loads them with ctypes, and times
         # parent and tree in turns
 
+The parent is the commit before kernel D's launch plan: its D takes no plan
+(one thread a landmark, red6 zeroed by a memset and summed with float
+atomics), and its B has the tree's C interface, so the tree's wrapper
+launches it with the parent's library swapped in.
+
 `time` prints the card's name and power limit, then one JSON object per
-shape and kernel: for B (seed eval, and with back-substitution) and A the
-parent's kernel and the tree's in turns (parent, tree, tree, parent); for C
-(not changed) the tree's twice. Each turn is `--launches` calls after a
-warm-up of about 0.3 s (clocks up), profiled with torch.profiler
-(chip_smoke.device_times: each kernel's min / median / max / mean over its
-records, and their sums over the kernels a call launches, the parent's two
-zero fills of red and cost included), and the CUDA-event ms of each call,
-min / median / max (for a call shorter than the host's issue time, the
-host's).
-Beside each shape the SM clock, top SM clock, power draw and temperature
-before and after, from nvidia-smi.
+shape: kernel D's G, zv and vinv6 held bit for bit to the parent's, and red6
+to it by the per-block checks (chip_smoke.check_blocks); the tree's D called
+twice with the same bits in every output; the parent's D and the tree's in
+turns (parent, tree, tree, parent); and kernel B's seed eval bit for bit
+against the parent's (B's per-camera group sums moved into a header shared
+with D). Each turn is `--launches` calls after a warm-up of about 0.3 s
+(clocks up), profiled with torch.profiler (chip_smoke.device_times: each
+kernel's min / median / max / mean over its records, and their sums over the
+kernels a call launches, the parent's memset of red6 included), and the
+CUDA-event ms of each call, min / median / max (for a call shorter than the
+host's issue time, the host's). Beside each shape the SM clock, top SM
+clock, power draw and temperature before and after, from nvidia-smi.
 
 Shapes: "pipeline" (with --pipeline: the final global BA of the 40-frame
 640x480 pipeline that chip_smoke.py runs, every active keyframe and the
-landmarks with two or more observations), "8c" (make_synthetic_scene at 8
-cameras / 1,024 landmarks / O = 8), "64c" (10k / O = 16), "128c" (100k /
-O = 8), "600c" (12 cameras x 50 copies, 3k / O = 16), "2100c" (12 x 175),
-and "hamming" (1000 x 1000 at B = 1 and 25, chip_smoke's inputs).
+landmarks with two or more observations), "64c" (make_synthetic_scene at 64
+cameras / 10k landmarks / O = 16), "128c" (100k / O = 8), "600c" (12
+cameras x 50 copies, 3k / O = 16), "2100c" (12 x 175) and "config7"
+(chip_smoke.track_dense: 71 cameras / 10,842 landmarks / O = 72, n_all 500).
 """
 
 from __future__ import annotations
@@ -48,17 +54,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 CSRC = "bundleadjustment_tpu_torch/csrc"
-SOURCES = ("hamming.cu", "dense_eval.cu", "schur_s.cu", "point_prepare.cuh")
-P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the parent's C entry points: kernels A and B before their launch plans
+SOURCES = ("dense_eval.cu", "schur_prepare.cu", "point_prepare.cuh")
+P, I32 = ctypes.c_void_p, ctypes.c_int
+# the parent's C entry points: B as the tree's, D before its launch plan
 PARENT_SIGNATURES = {
-    "hamming": {"hamming_top2": [P, I64, P, P, I32, I32, I32, P, P, P, P]},
-    "dense_eval": {"dense_eval_assemble": [P] * 14 + [I32] * 5 + [P] * 7},
+    "dense_eval": {"dense_eval_assemble": [P] * 14 + [I32] * 10 + [P] * 8},
+    "schur_prepare": {"schur_prepare": [P] * 6 + [I32] * 3 + [P] * 5},
 }
 DENSE_SHAPES = {  # tag: (cameras, landmarks, obs per landmark, O, copies)
-    "8c": (8, 1_024, 8, 8, 1), "64c": (64, 10_000, 8, 16, 1),
-    "128c": (128, 100_000, 6, 8, 1), "600c": (12, 3_000, None, 16, 50),
-    "2100c": (12, 3_000, None, 16, 175)}
+    "64c": (64, 10_000, 8, 16, 1), "128c": (128, 100_000, 6, 8, 1),
+    "600c": (12, 3_000, None, 16, 50), "2100c": (12, 3_000, None, 16, 175)}
+SHAPES = (*DENSE_SHAPES, "config7")
 
 
 def extract(rev, out):
@@ -72,7 +78,7 @@ def extract(rev, out):
 
 
 def build_parent(parent):
-    """The parent's A and B built into <parent>/_build; {name: CDLL}."""
+    """The parent's B and D built into <parent>/_build; {name: CDLL}."""
     from concurrent.futures import ThreadPoolExecutor
 
     from bundleadjustment_tpu_torch import kernels
@@ -95,48 +101,40 @@ def build_parent(parent):
         return {n: f.result() for n, f in futs.items()}
 
 
-def parent_eval(lib, seed, bs=None, robust=True):
-    """The parent's wrapper of kernel B: red and cost zeroed by two fills,
-    then one launch."""
+def parent_prepare(lib, args):
+    """The parent's wrapper of kernel D: one call, which zeroes red6 with a
+    memset and then launches the kernel."""
     import torch
 
     from bundleadjustment_tpu_torch import kernels
 
-    K4, cam_t, uv_t, isig, valid_t, fixed_t, R, t, Xt = seed
+    lam, Vu, g_p, pt_valid, W18, cam_t, K = args
     O, L = cam_t.shape
-    K = R.shape[0]
     dev, f32 = cam_t.device, torch.float32
-    red = torch.zeros((K, 27), dtype=f32, device=dev)
-    cost = torch.zeros((), dtype=f32, device=dev)
-    Vu = torch.empty((6, L), dtype=f32, device=dev)
-    g_p = torch.empty((3, L), dtype=f32, device=dev)
-    W = torch.empty((18, O, L), dtype=f32, device=dev)
-    Xt_new = torch.empty((3, L), dtype=f32, device=dev) if bs is not None else None
-    ptrs = [x.data_ptr() for x in bs] if bs is not None else [None] * 5
-    code = lib.dense_eval_assemble(
-        K4.data_ptr(), R.data_ptr(), t.data_ptr(), ptrs[0], cam_t.data_ptr(),
-        uv_t.data_ptr(), isig.data_ptr(), valid_t.data_ptr(), fixed_t.data_ptr(),
-        Xt.data_ptr(), *ptrs[1:], O, L, K, int(robust), int(bs is not None),
-        red.data_ptr(), cost.data_ptr(), Vu.data_ptr(), g_p.data_ptr(), W.data_ptr(),
-        None if Xt_new is None else Xt_new.data_ptr(), kernels.stream_of(cam_t))
-    kernels.check(code, "parent dense_eval_assemble")
-    return cost, red, Vu, g_p, W.reshape(6, 3, O, L), Xt_new
+    G = torch.empty((18, O, L), dtype=f32, device=dev)
+    zv = torch.empty((3, L), dtype=f32, device=dev)
+    vinv6 = torch.empty((6, L), dtype=f32, device=dev)
+    red6 = torch.empty((6, K), dtype=f32, device=dev)
+    code = lib.schur_prepare(lam.data_ptr(), Vu.data_ptr(), g_p.data_ptr(),
+                             pt_valid.data_ptr(), W18.data_ptr(), cam_t.data_ptr(),
+                             O, L, K, G.data_ptr(), zv.data_ptr(), vinv6.data_ptr(),
+                             red6.data_ptr(), kernels.stream_of(cam_t))
+    kernels.check(code, "parent schur_prepare")
+    return G, zv, vinv6, red6
 
 
-def parent_hamming(lib, q, t, v):
-    import torch
-
+def parent_eval(lib, seed):
+    """Kernel B's seed eval through the tree's wrapper, with the parent's
+    library in place of the tree's."""
     from bundleadjustment_tpu_torch import kernels
+    from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
 
-    B, M1, M2 = t.shape[0], q.shape[1], t.shape[1]
-    best = torch.empty((B, M1), dtype=torch.float32, device=q.device)
-    second = torch.empty_like(best)
-    idx = torch.empty((B, M1), dtype=torch.int32, device=q.device)
-    code = lib.hamming_top2(q.data_ptr(), 0 if q.shape[0] == 1 else M1 * 8,
-                            t.data_ptr(), v.data_ptr(), B, M1, M2, best.data_ptr(),
-                            second.data_ptr(), idx.data_ptr(), kernels.stream_of(q))
-    kernels.check(code, "parent hamming_top2")
-    return best, second, idx
+    tree = kernels.lib("dense_eval")
+    kernels._libs["dense_eval"] = lib
+    try:
+        return dk.eval_assemble(*seed)
+    finally:
+        kernels._libs["dense_eval"] = tree
 
 
 def smi():
@@ -184,9 +182,11 @@ def turns(label, shape, fns, n, emit):
     emit(row)
 
 
-def dense_problem(tag, device):
+def problem(tag, device):
     import chip_smoke as cs
 
+    if tag == "config7":
+        return cs.track_dense(device)
     nc, npt, opp, mo, copies = DENSE_SHAPES[tag]
     return cs.synthetic_dense(nc, npt, opp, mo, device, copies)
 
@@ -207,59 +207,35 @@ def pipeline_problem(device):
     return prob, pipe._t(snap.extr), pipe._t(snap.points)
 
 
-def time_dense(libs, tag, prob, cams, pts, n, emit):
+def time_shape(libs, tag, prob, cams, pts, n, emit):
     import torch
 
     import chip_smoke as cs
     from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
 
-    x = cs.dense_inputs(prob, cams, pts)
-    lib = libs["dense_eval"]
-    seed, bs = x["seed"], x["bs"]
-    # the parent against the tree once, to the smoke's checks
-    for who, got in (("parent", parent_eval(lib, seed)), ("tree", dk.eval_assemble(*seed))):
-        torch.cuda.synchronize()
-        for g, r, name in zip(got[1:5], x["seed_p"][1:5], ("red", "Vu", "g_p", "W")):
-            cs.check_blocks(f"{tag} {who}", name, g, r)
+    x = cs.dense_inputs(prob, cams, pts, bs=False)
+    p, lib = x["p"], libs["schur_prepare"]
     shape = {"tag": tag, "K": x["K"], "L": x["L"], "O": x["O"], "n_obs": x["n_valid"]}
-    turns("B seed", shape, [("parent", lambda: parent_eval(lib, seed)),
-                            ("tree", lambda: dk.eval_assemble(*seed)),
-                            ("tree", lambda: dk.eval_assemble(*seed)),
-                            ("parent", lambda: parent_eval(lib, seed))], n, emit)
-    # eval_assemble_bs's arguments as the parent's launch takes them: the
-    # eval's (at R_new, t_new, Xt) and the back-substitution's
-    bs_seed = (*bs[:8], bs[9])
-    bs_extra = (bs[8], *bs[10:])  # dc, W18_prev, vinv6, gp_prev, pt_valid
-    turns("B bs", shape,
-          [("parent", lambda: parent_eval(lib, bs_seed, bs_extra)),
-           ("tree", lambda: dk.eval_assemble_bs(*bs)),
-           ("tree", lambda: dk.eval_assemble_bs(*bs)),
-           ("parent", lambda: parent_eval(lib, bs_seed, bs_extra))], n, emit)
-    if x["K"] <= 600:
-        c = x["c"]
-        turns("C", shape, [("tree", lambda: dk.schur_prepare_s(*c)),
-                           ("tree", lambda: dk.schur_prepare_s(*c))], n, emit)
-
-
-def time_hamming(libs, n, emit):
-    import numpy as np
-    import torch
-
-    import chip_smoke as cs
-    from bundleadjustment_tpu_torch.ops.hamming import hamming_top2
-
-    rng = np.random.default_rng(0)
-    lib = libs["hamming"]
-    for B in (1, 25):
-        q, t, v = cs._hamming_inputs(rng, B, 1000, "cuda")
-        for g, r in zip(parent_hamming(lib, q, t, v), hamming_top2(q, t, v)):
-            if not torch.equal(g, r):
-                raise AssertionError(f"hamming B={B}: parent and tree differ")
-        turns("A", {"tag": f"1000x1000_B{B}", "B": B},
-              [("parent", lambda: parent_hamming(lib, q, t, v)),
-               ("tree", lambda: hamming_top2(q, t, v)),
-               ("tree", lambda: hamming_top2(q, t, v)),
-               ("parent", lambda: parent_hamming(lib, q, t, v))], n, emit)
+    old, new = parent_prepare(lib, p), dk.schur_prepare(*p)
+    torch.cuda.synchronize()
+    O, L = x["O"], x["L"]
+    cs.check_twice(tag, "D", lambda: dk.schur_prepare(*p), new, n=4)
+    for g, r, name in zip(new[:3], old[:3], ("G", "zv", "vinv6")):
+        if not torch.equal(g, r):
+            raise AssertionError(f"{tag} D: {name} differs from the parent's")
+    red6_err = cs.check_blocks(f"{tag} D vs parent", "red6", new[3], old[3])
+    b_new, b_old = dk.eval_assemble(*x["seed"]), parent_eval(libs["dense_eval"], x["seed"])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(b_new, b_old)):
+        raise AssertionError(f"{tag} B: the seed eval differs from the parent's")
+    emit({"shape": shape, "D_G_zv_vinv6_bit_identical_to_parent": True,
+          "D_red6_max_abs_diff_to_parent": red6_err, "D_bit_identical_twice": True,
+          "B_seed_bit_identical_to_parent": True,
+          "plan": cs.prepare_plan_fields(tag, x["K"], L, O)["plan"]})
+    turns("D", shape, [("parent", lambda: parent_prepare(lib, p)),
+                       ("tree", lambda: dk.schur_prepare(*p)),
+                       ("tree", lambda: dk.schur_prepare(*p)),
+                       ("parent", lambda: parent_prepare(lib, p))], n, emit)
 
 
 def time_all(args):
@@ -288,14 +264,12 @@ def time_all(args):
     libs = build_parent(args.parent)
     kernels.build_all()
     emit({"built_s": time.perf_counter() - t0})
-    if "hamming" in args.shapes:
-        time_hamming(libs, args.launches, emit)
     if args.pipeline:
-        time_dense(libs, "pipeline", *pipeline_problem(torch.device("cuda")),
+        time_shape(libs, "pipeline", *pipeline_problem(torch.device("cuda")),
                    args.launches, emit)
-    for tag in DENSE_SHAPES:
+    for tag in SHAPES:
         if tag in args.shapes:
-            time_dense(libs, tag, *dense_problem(tag, torch.device("cuda")),
+            time_shape(libs, tag, *problem(tag, torch.device("cuda")),
                        args.launches, emit)
     emit({"total_s": time.perf_counter() - t0})
     return 0
@@ -311,7 +285,7 @@ def main():
     tm.add_argument("--parent", default=os.path.join(ROOT, "_chip", "parent"))
     tm.add_argument("--pipeline", action="store_true")
     tm.add_argument("--launches", type=int, default=60)
-    tm.add_argument("--shapes", nargs="*", default=["hamming", *DENSE_SHAPES])
+    tm.add_argument("--shapes", nargs="*", default=list(SHAPES))
     tm.add_argument("--out")
     args = ap.parse_args()
     if args.cmd == "extract":
