@@ -11,14 +11,19 @@ torch.distributed process group when the caller has initialised one
 (`parallel/multihost.py`), else as one shard. Writes the
 TUM trajectory (`--trajectory`), the COFF mesh and `<prefix>_results.json`.
 
+`--global-ba windowed` solves overlapping keyframe windows (round-robin
+over the ranks of that group), averages their shared landmarks with one
+all-reduce and stitches the trajectory with a pose graph. `--ba-solver pcg`
+solves every BA's camera system by matrix-free PCG; `--depth-landmarks`
+seeds landmarks from the depth map at every keyframe.
+
 `--init-type standard` (two-view E/H bootstrap, no depth) and `--estimation
 pnp` / `essential_or_homography` are the monocular configurations; `--seed`
 seeds their RANSAC sampler.
 
 Flags of modes that are not ported raise NotImplementedError naming the
-ROADMAP item that ports them: --global-ba windowed, --ba-solver pcg,
---depth-landmarks, --predetect, --reconstruction-error, --faces-type
-poisson, --display-pointcloud. --no-warmup, --matcher, --no-fused-tracking
+ROADMAP item that ports them: --predetect, --reconstruction-error,
+--faces-type poisson, --display-pointcloud. --no-warmup, --matcher, --no-fused-tracking
 and --track-batch are accepted and change nothing (their --help says so):
 they tuned the JAX package's compilation and dispatch, which the port does
 not have; the JAX microbatch of --track-batch also froze the local-map

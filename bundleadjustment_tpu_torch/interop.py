@@ -6,9 +6,12 @@ into the port's dataclass on `device`, so both packages can compute on
 identical inputs. It dispatches on the class name and never imports jax:
 array fields are read through `numpy.asarray`.
 
-Conversions: index arrays of the flat problem become int64, the dense
-layout keeps int32 camera indices, and packed uint32 descriptor words keep
-their bit patterns as int32.
+Conversions: index arrays of the flat problem and of the pose graph become
+int64, the dense layout keeps int32 camera indices, and packed uint32
+descriptor words keep their bit patterns as int32. The reference's
+`ShardedBAProblem` stacks every shard on a leading axis; the port's holds
+one rank's slice, so `from_reference(problem, device, shard=r)` takes
+shard r (default 0).
 """
 
 from __future__ import annotations
@@ -21,14 +24,16 @@ import torch
 from bundleadjustment_tpu_torch.device import resolve_device
 from bundleadjustment_tpu_torch.geometry.epipolar import TwoViewResult
 from bundleadjustment_tpu_torch.ops.features import FeatureConfig, Features
+from bundleadjustment_tpu_torch.parallel.posegraph import PoseGraph
 from bundleadjustment_tpu_torch.solvers.dense_ba import _CM, DenseBAProblem
 from bundleadjustment_tpu_torch.solvers.lm import LMConfig, MotionOnlyConfig
 from bundleadjustment_tpu_torch.solvers.residuals import BAProblem
 
-_INT64_FIELDS = {"BAProblem": ("cam_idx", "pt_idx")}
+_INT64_FIELDS = {"BAProblem": ("cam_idx", "pt_idx"),
+                 "PoseGraph": ("edge_i", "edge_j")}
 _TENSORS = {"DenseBAProblem": DenseBAProblem, "_CM": _CM,
             "BAProblem": BAProblem, "Features": Features,
-            "TwoViewResult": TwoViewResult}
+            "TwoViewResult": TwoViewResult, "PoseGraph": PoseGraph}
 _CONFIGS = {"FeatureConfig": FeatureConfig, "LMConfig": LMConfig,
             "MotionOnlyConfig": MotionOnlyConfig}
 
@@ -46,12 +51,18 @@ def to_tensor(a, device, int64=False):
     return t.to(device)
 
 
-def from_reference(obj, device="cuda"):
+def from_reference(obj, device="cuda", shard=0):
     """Convert a JAX-package NamedTuple to the port's counterpart; tensors
     go to `device` (the card unless the caller asks for the CPU; configs
-    carry no tensors and ignore it)."""
+    carry no tensors and ignore it). `shard` picks the rank's slice of a
+    ShardedBAProblem."""
     name = type(obj).__name__
     fields = obj._asdict()
+    if name == "ShardedBAProblem":
+        from bundleadjustment_tpu_torch.parallel.sharded_ba import problem_of_shard
+
+        return problem_of_shard({k: np.asarray(v) for k, v in fields.items()
+                                 if k != "n_cams"}, shard, device)
     if name in _CONFIGS:
         cls = _CONFIGS[name]
         names = {f.name for f in dataclasses.fields(cls)}

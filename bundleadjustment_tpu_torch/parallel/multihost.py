@@ -6,6 +6,10 @@ process group. NCCL on the card, gloo on the CPU; NCCL missing on a CUDA
 run is an error, never a fall back to gloo. The rendezvous is a shared file
 (`file://`), so parallel test workers need no free port. Every process calls
 `init_process_group` with its own rank and the same file and world size.
+
+`COLLECTIVES` counts the collectives the port's distributed solvers issue
+(the sharded dense and flat engines, the windowed global BA), by name, and
+the bytes all-reduced.
 """
 
 from __future__ import annotations
@@ -50,3 +54,40 @@ def default_group():
     if dist.is_available() and dist.is_initialized():
         return dist.group.WORLD
     return None
+
+
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "all_reduce_bytes": 0}
+
+
+def all_reduce_hook(group):
+    """The cross-shard sum (the reference's `psum`): identity for no group,
+    else an in-place all_reduce(SUM) of the (freshly computed) tensor over
+    `group`, counted in COLLECTIVES."""
+    if group is None:
+        return lambda x: x
+
+    def reduce(x):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        COLLECTIVES["all_reduce"] += 1
+        COLLECTIVES["all_reduce_bytes"] += x.numel() * x.element_size()
+        return x
+
+    return reduce
+
+
+def all_gather_rows(x, group):
+    """Every rank's x [n, ...] stacked as [world, n, ...] (one all_gather,
+    counted); x[None] without a group."""
+    if group is None:
+        return x[None]
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    COLLECTIVES["all_gather"] += 1
+    return torch.stack(parts)
+
+
+def group_rank_size(group):
+    """(rank, world size) in `group`; (0, 1) without one."""
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)

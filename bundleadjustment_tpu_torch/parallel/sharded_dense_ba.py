@@ -13,20 +13,26 @@ program over a mesh, each rank here holds only its own [Ls, ...] slice.
 With no group nothing is communicated, and the solve still takes the
 sharded engine's Schur route (K5, or kernel D for O > 64): the reference's
 1-device mesh. A group of one runs every collective, as a larger one does.
-`COLLECTIVES` counts the collectives issued, by name.
+`COLLECTIVES` (`multihost.py`) counts the collectives issued. With PCG
+each matvec all-reduces its [K, 6] back-projection.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from bundleadjustment_tpu_torch.parallel.multihost import (  # noqa: F401
+    COLLECTIVES,  # re-exported: the counter the smoke and tests read here
+    all_gather_rows,
+    all_reduce_hook,
+)
 from bundleadjustment_tpu_torch.solvers.dense_ba import (
     dense_ba_solve,
     densify_numpy,
     to_problem,
 )
+from bundleadjustment_tpu_torch.solvers.lm import LMConfig
 
 
 def shard_dense_problem(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
@@ -61,50 +67,22 @@ def shard_dense_problem(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
     return prob, pts, shard_of, local_of
 
 
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
-
-
-def _all_reduce_hook(group):
-    """The cross-shard sum for `dense_ba_solve(reduce=...)`: identity for no
-    group, else an in-place all_reduce(SUM) of the (freshly computed) tensor
-    over `group`."""
-    if group is None:
-        return lambda x: x
-
-    def reduce(x):
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-        COLLECTIVES["all_reduce"] += 1
-        return x
-
-    return reduce
-
-
 def sharded_dense_ba_solve(prob, cams_rt6, points_shard, config=None,
                            group=None):
     """Landmark-sharded dense LM solve of this rank's shard.
 
     prob / points_shard: this rank's slice (`shard_dense_problem`);
     cams_rt6 [K, 6] replicated. Every rank of `group` calls it with the same
-    cameras and config. Returns (cam_rt6' replicated, points_shard',
-    info)."""
+    cameras and config; None is the reference's default, PCG
+    (`LMConfig(max_iters=10, solver="pcg")`). Returns (cam_rt6'
+    replicated, points_shard', info)."""
     if config is None:
-        raise NotImplementedError(
-            "the reference's default solver for the sharded engine is 'pcg', "
-            "which is not ported yet (ROADMAP queue 1: 4. PCG); pass "
-            "LMConfig(solver='dense')")
+        config = LMConfig(max_iters=10, solver="pcg")
     return dense_ba_solve(prob, cams_rt6, points_shard, config,
-                          reduce=_all_reduce_hook(group))
+                          reduce=all_reduce_hook(group))
 
 
 def gather_points(points_shard, shard_of, local_of, group=None):
     """Every rank's solved points_shard [Ls, 3] back in the flat landmark
     order: numpy [L, 3] on every rank."""
-    if group is None:
-        stacked = points_shard[None]
-    else:
-        parts = [torch.empty_like(points_shard)
-                 for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, points_shard.contiguous(), group=group)
-        COLLECTIVES["all_gather"] += 1
-        stacked = torch.stack(parts)
-    return stacked.cpu().numpy()[shard_of, local_of]
+    return all_gather_rows(points_shard, group).cpu().numpy()[shard_of, local_of]

@@ -5,16 +5,19 @@ Port of `bundleadjustment_tpu/pipeline/driver.py`: gtdepth or standard
 `estimation="ba"` or `"pnp"` (motion-only BA, robust or not, with the guided
 local-map second pass) or `"essential_or_homography"` (two-view pose with
 the constant-velocity scale), keyframe culling / triangulation / covisibility /
-neighbourhood search and fusion, local or global BA (`global_ba_mode=
-"single"`, or `"sharded"` over torch.distributed), and `finalize` (the
-3 x 100 global BA plus two rounds of trajectory refinement), with the native C++ map store (`SceneMap`, copied
+neighbourhood search and fusion, RGB-D depth seeding at keyframes
+(`depth_landmarks`), local or global BA (`global_ba_mode="single"`, or
+`"sharded"` / `"windowed"` over torch.distributed; `ba_solver="dense"` or
+`"pcg"`), and `finalize` (the 3 x 100 global BA plus two rounds of
+trajectory refinement), with the native C++ map store (`SceneMap`, copied
 from the JAX package) holding the observation graph.
 
 Device work (detection, matching, motion-only BA, triangulation, BA) runs on
 `device`; host bookkeeping stays in numpy. Every Hamming top-2 search
 (previous-frame match, guided local-map match, neighbour search) goes through
 kernel A; dense BA goes through kernels B and C (K5 or kernel D in the
-sharded global BA and for more than 64 observations per landmark).
+sharded global BA and for more than 64 observations per landmark; B alone
+with PCG).
 
 Differences from the JAX driver:
 
@@ -32,9 +35,6 @@ Differences from the JAX driver:
   (the two-view estimators get the real pairs and an all-true mask);
 - the RANSAC samples come from a CPU `torch.Generator` seeded with
   `config.seed`, not from a JAX key: other samples, the same distribution.
-
-Modes off this path raise NotImplementedError naming the ROADMAP item that
-ports them.
 """
 
 from __future__ import annotations
@@ -63,6 +63,7 @@ from bundleadjustment_tpu_torch.solvers.dense_ba import (
     densify_problem_auto,
 )
 from bundleadjustment_tpu_torch.solvers.lm import (
+    SOLVERS,
     LMConfig,
     MotionOnlyConfig,
     ba_solve,
@@ -110,6 +111,18 @@ def sample_depth_bilinear(depth, uv):
     return np.where(ok & (val > 0), val, np.nan)
 
 
+_POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
+
+
+def hamming_rows(a, b):
+    """Hamming distances between paired rows of packed descriptors a, b
+    [N, W] uint32: the set bits of a ^ b per row, counted a byte at a time
+    through a 256-entry table (numpy's `bitwise_count` needs numpy >= 2)."""
+    x = np.ascontiguousarray(np.bitwise_xor(a.astype(np.uint32),
+                                            b.astype(np.uint32)))
+    return _POPCOUNT8[x.view(np.uint8)].reshape(len(x), -1).sum(-1, dtype=np.int64)
+
+
 @dataclass
 class FrameFeatures:
     xy: np.ndarray
@@ -145,23 +158,14 @@ def _pow2(n, minimum):
     return cap
 
 
-def _not_ported(what, item):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1: {item})")
-
-
 def check_config(cfg: PipelineConfig):
-    """Raise NotImplementedError for every mode off the ported path."""
+    """Raise ValueError for a mode the reference does not have."""
     if cfg.init_type not in ("gtdepth", "standard"):
         raise ValueError(f"unknown init_type {cfg.init_type!r}")
     if cfg.estimation not in ("ba", "pnp", "essential_or_homography"):
         raise ValueError(f"unknown estimation {cfg.estimation!r}")
-    if cfg.global_ba_mode == "windowed":
-        _not_ported("global_ba_mode='windowed'",
-                    "the windowed mode over parallel/windows.py, posegraph.py")
-    if cfg.ba_solver != "dense":
-        _not_ported(f"ba_solver={cfg.ba_solver!r}", "PCG")
-    if cfg.depth_landmarks:
-        _not_ported("depth_landmarks", "depth seeding")
+    if cfg.ba_solver not in SOLVERS:
+        raise ValueError(f"unknown ba_solver {cfg.ba_solver!r}")
 
 
 def _feat_capacity(config: PipelineConfig):
@@ -200,9 +204,11 @@ class BundleAdjustmentPipeline:
         self.stats = {"frames": 0, "keyframes": 0, "tracking_failures": 0}
         self.timers = PhaseTimer()
         # (observations, engine) of every BA solve, in order: "flat",
-        # "dense_landmark" or "sharded"
+        # "dense_landmark", "sharded" or "windowed"
         self.ba_solves: list[tuple[int, str]] = []
+        self.windowed_runs: list[dict] = []  # info of every windowed global BA
         self._prev_track = None  # (xyz [M,3], trackable [M], ids [M])
+        self._pending_seeds: list[int] = []  # 1-obs depth-seeded landmarks
         self._last_kf_slot = None
         self._kf_ref_inliers = None
         self._frames_since_kf = 0
@@ -303,6 +309,12 @@ class BundleAdjustmentPipeline:
             pt_fixed=torch.zeros(snap.points.shape[0], dtype=torch.bool,
                                  device=self.device))
 
+    def _lm_config(self, max_iters):
+        """The LM settings of a pipeline BA solve: the configured solver and
+        its PCG budget."""
+        return LMConfig(max_iters=max_iters, solver=self.cfg.ba_solver,
+                        pcg_iters=self.cfg.pcg_iters)
+
     def _solve_ba(self, snap, max_iters):
         with self.timers.phase("bundle_adjust"):
             n_obs = int(np.asarray(snap.valid).sum())
@@ -311,7 +323,7 @@ class BundleAdjustmentPipeline:
                 layout = ("dense_landmark"
                           if n_obs >= self.cfg.ba_layout_auto_min_obs else "flat")
             self.ba_solves.append((n_obs, layout))
-            lm_cfg = LMConfig(max_iters=max_iters, solver=self.cfg.ba_solver)
+            lm_cfg = self._lm_config(max_iters)
             prob = self._flat_problem(snap)
             extr, points = self._t(snap.extr), self._t(snap.points)
             if layout == "dense_landmark":
@@ -334,15 +346,35 @@ class BundleAdjustmentPipeline:
 
     def global_ba(self, max_iters=None):
         """Global BA over all active keyframes (first one fixed), routed by
-        cfg.global_ba_mode: "single" (`_solve_ba`) or "sharded"
+        cfg.global_ba_mode: "single" (`_solve_ba`), "windowed"
+        (`_global_ba_windowed`, with 3 or more keyframes) or "sharded"
         (`_solve_ba_sharded`)."""
         kfs = self.map.active_keyframes().tolist()
         if len(kfs) < 2:
             return None
+        if self.cfg.global_ba_mode == "windowed" and len(kfs) >= 3:
+            return self._global_ba_windowed(max_iters or self.cfg.kf_ba_iters)
         snap = self.map.snapshot_problem(kfs, min_obs=2)
         if self.cfg.global_ba_mode == "sharded":
             return self._solve_ba_sharded(snap, max_iters or self.cfg.kf_ba_iters)
         return self._solve_ba(snap, max_iters or self.cfg.kf_ba_iters)
+
+    def _global_ba_windowed(self, max_iters):
+        """Windowed global BA + pose-graph stitch (parallel/windows.py), the
+        windows dealt over the default process group's ranks when one is
+        initialised. Returns its info dict; `windowed_runs` keeps them all."""
+        from bundleadjustment_tpu_torch.parallel.multihost import default_group
+        from bundleadjustment_tpu_torch.parallel.windows import windowed_global_ba
+
+        with self.timers.phase("bundle_adjust"):
+            info = windowed_global_ba(
+                self.map, window=self.cfg.local_window,
+                stride=max(self.cfg.local_window // 2, 1),
+                config=self._lm_config(max_iters), group=default_group(),
+                device=self.device)
+            self.ba_solves.append((info["observations"], "windowed"))
+            self.windowed_runs.append(info)
+            return info
 
     def _solve_ba_sharded(self, snap, max_iters):
         """Landmark-sharded dense solve (parallel/sharded_dense_ba.py) over
@@ -372,7 +404,7 @@ class BundleAdjustmentPipeline:
                 snap.K4, snap.cam_idx, snap.pt_idx, snap.uv, snap.sigma2,
                 snap.valid, snap.cam_fixed, snap.points, n_shards, rank,
                 max_obs=max_obs, device=self.device)
-            cfg = LMConfig(max_iters=max_iters, solver=self.cfg.ba_solver)
+            cfg = self._lm_config(max_iters)
             cams, pts_sh, info = sharded_dense_ba_solve(
                 prob, self._t(snap.extr), pts_sh, cfg, group)
             pts = self._t(gather_points(pts_sh, shard_of, local_of, group))
@@ -661,6 +693,121 @@ class BundleAdjustmentPipeline:
                 for i in stale[gate]:
                     m.add_observation(int(pt_now[i]), nb, int(pb[i]))
         return n
+
+    # ------------------------------------------------------------------
+    # RGB-D depth seeding
+    # ------------------------------------------------------------------
+
+    def _seed_depth_landmarks(self, slot, feats: FrameFeatures, depth):
+        """Backproject the keyframe's landmark-free keypoints through its
+        depth map into new map points (at most depth_landmarks_max, the
+        finest octaves first, in keypoint order). Seeds start with one
+        observation and wait in `_pending_seeds` for a second."""
+        m = self.map
+        M = len(feats.xy)
+        free = (m.kp_pt[slot, :M] < 0) & feats.valid[:M]
+        idx = np.nonzero(free)[0]
+        if len(idx) == 0:
+            return 0
+        d = sample_depth_bilinear(depth, feats.xy[idx])
+        ok = np.isfinite(d) & (d > 0)
+        idx, d = idx[ok], d[ok]
+        if len(idx) > self.cfg.depth_landmarks_max:
+            order = np.argsort(feats.sigma2[idx], kind="stable")
+            order = np.sort(order[: self.cfg.depth_landmarks_max])
+            idx, d = idx[order], d[order]
+        pose = np_se3.rt6_inverse(m.kf_pose[slot])
+        K = self.K4
+        xc = np.stack([
+            (feats.xy[idx, 0] - K[2]) / K[0] * d,
+            (feats.xy[idx, 1] - K[3]) / K[1] * d,
+            d,
+        ], -1)
+        R = np_se3.aa_to_R(pose[:3])
+        xw = xc @ R.T + pose[3:]
+        img = getattr(self, "_cur_image", None)
+        cols = sample_color_bilinear(img, feats.xy[idx]) if img is not None else None
+        dist = np.linalg.norm(xc, axis=1)
+        n = 0
+        for i, kp in enumerate(idx):
+            # first_kf=-1: exempt from the recent-point culling window (a
+            # seed waits several keyframes for its second observation)
+            pt = m.add_point(xw[i], desc=feats.desc[kp], first_kf=-1)
+            if m.add_observation(pt, slot, int(kp)) != 1:
+                m.erase_point(pt)
+                continue
+            m.set_point_scale_bounds(pt, float(dist[i]), feats.octave[kp],
+                                     self.cfg.scale_factor, self.cfg.n_levels)
+            if cols is not None:
+                m.pt_color[pt] = cols[i]
+            self._pending_seeds.append(int(pt))
+            n += 1
+        return n
+
+    def _live_pending_seeds(self, pend):
+        """The seeds of `pend` still active and still with < 2 observations."""
+        m = self.map
+        pend = pend[m.pt_active[pend] == 1]
+        if len(pend):
+            pend = pend[m.point_obs_counts(pend) < 2]
+        return pend
+
+    def _densify_pending_seeds(self, slot, feats: FrameFeatures):
+        """Projection-guided second observations for the pending seeds:
+        project each into the new keyframe, take the nearest landmark-free
+        keypoint within track_window_px, keep it if its descriptor is within
+        search_max_dist and the transfer gates pass (the first seed per
+        keypoint wins). Returns the observations added."""
+        m = self.map
+        cfg = self.cfg
+        if not self._pending_seeds:
+            return 0
+        pend = self._live_pending_seeds(np.asarray(self._pending_seeds, np.int64))
+        if len(pend) == 0:
+            self._pending_seeds = []
+            return 0
+        M = len(feats.xy)
+        free_kp = np.nonzero((m.kp_pt[slot, :M] < 0) & feats.valid[:M])[0]
+        n_added = 0
+        if len(free_kp):
+            kp_xy = feats.xy[free_kp]
+            K = self.K4
+            extr = m.kf_pose[slot]
+            R = np_se3.aa_to_R(extr[:3])
+            for s in range(0, len(pend), 2048):  # chunk the [P, F] window
+                blk = pend[s:s + 2048]
+                X = m.pt_pos[blk].astype(np.float64)
+                xc = X @ R.T + extr[3:]
+                z = xc[:, 2]
+                zs = np.where(np.abs(z) < 1e-9, 1e-9, z)
+                u = K[0] * xc[:, 0] / zs + K[2]
+                v = K[1] * xc[:, 1] / zs + K[3]
+                vis = ((z > 0.05) & (u >= 0) & (u < self.width)
+                       & (v >= 0) & (v < self.height))
+                sv = np.nonzero(vis)[0]
+                if len(sv) == 0:
+                    continue
+                uv_pred = np.stack([u[sv], v[sv]], -1)
+                d2 = ((uv_pred[:, None, :] - kp_xy[None, :, :]) ** 2).sum(-1)
+                j = np.argmin(d2, axis=1)
+                near = d2[np.arange(len(sv)), j] < cfg.track_window_px ** 2
+                sv, j = sv[near], j[near]
+                if len(sv) == 0:
+                    continue
+                kp = free_kp[j]
+                dd = hamming_rows(m.pt_desc[blk[sv]], feats.desc[kp])
+                okd = dd < cfg.search_max_dist
+                sv, kp = sv[okd], kp[okd]
+                if len(sv) == 0:
+                    continue
+                gate = self._transfer_gate(blk[sv], slot, kp)
+                sv, kp = sv[gate], kp[gate]
+                _, first = np.unique(kp, return_index=True)
+                for i in first:
+                    if m.add_observation(int(blk[sv[i]]), slot, int(kp[i])) == 1:
+                        n_added += 1
+        self._pending_seeds = [int(p) for p in self._live_pending_seeds(pend)]
+        return n_added
 
     # ------------------------------------------------------------------
     # neighbourhood search & fusion
@@ -1042,6 +1189,13 @@ class BundleAdjustmentPipeline:
                                     matches, image=self._cur_image,
                                     image_side="b")
             m.update_covisibility(slot, cfg.covis_threshold)
+            # depth seeding before the neighbourhood search, so its gated
+            # transfers cover the new seeds too; pending seeds of earlier
+            # keyframes first get their guided chance at the free keypoints
+            if cfg.depth_landmarks:
+                self._densify_pending_seeds(slot, feats)
+                if frame.depth is not None:
+                    self._seed_depth_landmarks(slot, feats, frame.depth)
             self.search_in_neighbors(slot, feats)
             m.refresh_frame_points(slot)
             m.update_covisibility(slot, cfg.covis_threshold)

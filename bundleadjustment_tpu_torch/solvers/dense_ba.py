@@ -1,11 +1,11 @@
-"""Dense landmark-major bundle adjustment (exact Schur, Cholesky).
+"""Dense landmark-major bundle adjustment (exact Schur + Cholesky, or PCG).
 
 Port of `bundleadjustment_tpu/solvers/dense_ba.py`. Observations are
 grouped by landmark into `[L, O]` slots (validity-masked) and carried in the
 reference's component-major `[..., O, L]` layout (`_CM`), so the kernels and
 their plain versions take exactly the arrays the Pallas kernels take.
 
-One LM iteration (`dense_ba_solve`):
+One LM iteration (`dense_ba_solve`), `solver="dense"`:
 
 1. the Schur step, by the reference's three routes (`solve_fused`):
    (a) one device, O <= 64: kernel C (`schur_prepare_s`): damped point
@@ -24,6 +24,13 @@ One LM iteration (`dense_ba_solve`):
 3. kernel B with back-substitution (`eval_assemble_bs`): the trial landmarks
    Xt - V^-1 (g_p + W^T dc) and the eval + block assembly at the trial point;
 4. accept / reject with `torch.where`: no host sync inside the loop.
+
+With `solver="pcg"` the step is the reference's non-fused branch
+(`_pcg_step`): the damped U and V^-1 in PyTorch, PCG on the camera system
+with one `reduce` of the [K, 6] back-projection per matvec (`schur.pcg`),
+the landmark back-substitution in PyTorch, then kernel B without the
+back-substitution (`eval_assemble`) at the trial point. It launches no C,
+K5, D or E.
 
 The LM semantics are the reference's: a fixed `max_iters`, state frozen once
 `done` is set, lambda / 3 on accept and lambda * nu on reject. Kernel B seeds
@@ -170,6 +177,9 @@ TRIU3 = [(i, j) for i in range(3) for j in range(i, 3)]  # 6 entries
 SYM6_IDX = np.zeros((6, 6), np.int64)
 for _n, (_i, _j) in enumerate(TRIU6):
     SYM6_IDX[_i, _j] = SYM6_IDX[_j, _i] = _n
+SYM3_IDX = np.zeros((3, 3), np.int64)
+for _n, (_i, _j) in enumerate(TRIU3):
+    SYM3_IDX[_i, _j] = SYM3_IDX[_j, _i] = _n
 
 
 def _eval_cm(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt, robust):
@@ -295,6 +305,43 @@ def _solve_unfolded(dk, route, lam, Vu, g_p, W18, cm, red, reduce):
     return dk.chol_solve(S, b).reshape(6, K).T, vinv6
 
 
+def _pcg_step(lam, red, Vu, g_p, W18, cm, pcg_iters, reduce):
+    """The camera solve of the reference's non-fused PCG branch
+    (`solve_cameras`, `bundleadjustment_tpu/solvers/dense_ba.py:465-529`).
+    Each product over a landmark's slots is one einsum (the reference's
+    unrolled sums, in another summation order). Returns (dc [K, 6], vinv6
+    [6, L] for the back-substitution)."""
+    from bundleadjustment_tpu_torch.solvers.dense_kernels import (
+        damped_u,
+        point_inverse_plain,
+    )
+    from bundleadjustment_tpu_torch.solvers.schur import block_jacobi, pcg
+
+    K = cm.cam_fixed.shape[0]
+    O, L = cm.cam_t.shape
+    cam = cm.cam_t.long()
+    cam_flat = cam.reshape(-1)
+    W = W18.reshape(6, 3, O, L)
+    U, g_c = damped_u(lam, red, cm.cam_fixed)
+    vinv6, zv = point_inverse_plain(lam, Vu, g_p, cm.pt_valid)
+    V_inv = vinv6[torch.from_numpy(SYM3_IDX).to(vinv6.device)]  # [3, 3, L]
+
+    def to_cams(z_pt):
+        """sum_o W_o z_pt per camera, [K, 6] (the reference's
+        `_reduce_cams(_w_apply(W, z))`), all-reduced."""
+        wz = torch.einsum("ijol,jl->iol", W, z_pt).reshape(6, -1)
+        return reduce(torch.zeros((K, 6), dtype=wz.dtype, device=wz.device)
+                      .index_add_(0, cam_flat, wz.T))
+
+    def matvec(x):
+        y = torch.einsum("ijol,oli->jl", W, x[cam])  # W^T x per landmark
+        return (torch.einsum("kij,kj->ki", U, x)
+                - to_cams(torch.einsum("jml,ml->jl", V_inv, y)))
+
+    b = -(g_c - to_cams(zv))
+    return pcg(matvec, b, block_jacobi(U), pcg_iters), vinv6
+
+
 def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
                    ops=None, reduce=None):
     """LM / exact-Schur solve in the dense landmark-major layout.
@@ -310,9 +357,12 @@ def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
     (O <= 64). Given (the sharded engine, even with one shard), the Schur
     step all-reduces the unfolded partial: K5 for O <= 64. Above O = 64
     both take kernel D + Pf + Q Q^T (`schur_route`). The cost and the
-    per-camera rows are reduced after every eval.
+    per-camera rows are reduced after every eval. With `config.solver ==
+    "pcg"` every route gives way to `_pcg_step` (one reduce per matvec) and
+    kernel B without back-substitution.
     """
     from bundleadjustment_tpu_torch.solvers import dense_kernels
+    from bundleadjustment_tpu_torch.solvers.dense_kernels import _backsub_plain
 
     dk = dense_kernels.KERNEL_OPS if ops is None else ops
     check_solver(config)
@@ -338,9 +388,13 @@ def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
     fixed = cm.cam_fixed[:, None]
     zero = torch.zeros((), dtype=dt_, device=dev)
     hist = []
+    pcg_mode = config.solver == "pcg"
     for _ in range(config.max_iters):
         W18 = W.reshape(18, O, L)
-        if single and route == "s":
+        if pcg_mode:
+            dc, vinv6 = _pcg_step(lam, red, Vu, g_p, W18, cm, config.pcg_iters,
+                                  reduce)
+        elif single and route == "s":
             S, _zv, vinv6, b = dk.schur_prepare_s(
                 lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K, red, cm.cam_fixed)
             # S and b are in (i, k) order: the solution comes back as [6, K]
@@ -351,9 +405,15 @@ def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
         dc = torch.where(fixed, zero, dc).contiguous()
         R_new = (aa_to_rotmat(dc[:, :3]) @ R).contiguous()
         t_new = (t + dc[:, 3:]).contiguous()
-        new_cost, red_n, Vu_n, gp_n, W_n, Xt_n = dk.eval_assemble_bs(
-            *args, R_new, t_new, dc, Xt, W18, vinv6, g_p, cm.pt_valid,
-            robust=config.robust)
+        if pcg_mode:
+            Xt_n = _backsub_plain(cm.cam_t, dc, Xt, W18, vinv6, g_p,
+                                  cm.pt_valid).contiguous()
+            new_cost, red_n, Vu_n, gp_n, W_n = dk.eval_assemble(
+                *args, R_new, t_new, Xt_n, robust=config.robust)
+        else:
+            new_cost, red_n, Vu_n, gp_n, W_n, Xt_n = dk.eval_assemble_bs(
+                *args, R_new, t_new, dc, Xt, W18, vinv6, g_p, cm.pt_valid,
+                robust=config.robust)
         new_cost, red_n = reduce(new_cost), reduce(red_n)
         accept = (new_cost < cost) & torch.isfinite(new_cost)
         take = accept & ~done

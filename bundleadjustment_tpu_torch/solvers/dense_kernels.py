@@ -275,9 +275,10 @@ def eval_assemble_bs(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, dc,
 # ---------------------------------------------------------------------------
 
 
-def _point_prepare_plain(lam, Vu, g_p, pt_valid):
-    """Damped V (identity for invalid points), closed-form V^-1 (vinv6),
-    chol(V^-1) as a nested list C[j][m], and zv = V^-1 g_p."""
+def point_inverse_plain(lam, Vu, g_p, pt_valid):
+    """Damped V (identity for invalid points), its closed-form inverse as
+    the six entries (00, 01, 02, 11, 12, 22) vinv6 [6, L], and zv = V^-1 g_p
+    [3, L] (the reference's `_damp_blocks_cm` + `_sym3_inv_cm`)."""
     v00, v01, v02, v11, v12, v22 = (Vu[i] for i in range(6))
     v00 = v00 + lam * torch.clamp(v00, min=1e-6)
     v11 = v11 + lam * torch.clamp(v11, min=1e-6)
@@ -297,6 +298,19 @@ def _point_prepare_plain(lam, Vu, g_p, pt_valid):
     i00, i01, i02 = A * inv_det, B * inv_det, Cc * inv_det
     i11, i12, i22 = D * inv_det, E * inv_det, F * inv_det
     vinv6 = torch.stack([i00, i01, i02, i11, i12, i22])
+    gp = g_p
+    zv = torch.stack([i00 * gp[0] + i01 * gp[1] + i02 * gp[2],
+                      i01 * gp[0] + i11 * gp[1] + i12 * gp[2],
+                      i02 * gp[0] + i12 * gp[1] + i22 * gp[2]])
+    return vinv6, zv
+
+
+def _point_prepare_plain(lam, Vu, g_p, pt_valid):
+    """`point_inverse_plain` and chol(V^-1) as a nested list C[j][m]:
+    (vinv6, C, zv)."""
+    vinv6, zv = point_inverse_plain(lam, Vu, g_p, pt_valid)
+    i00, i01, i02, i11, i12, i22 = vinv6
+    zero = torch.zeros_like(i00)
     l00 = torch.sqrt(torch.clamp(i00, min=1e-20))
     l10 = i01 / l00
     l20 = i02 / l00
@@ -304,11 +318,23 @@ def _point_prepare_plain(lam, Vu, g_p, pt_valid):
     l21 = (i12 - l20 * l10) / l11
     l22 = torch.sqrt(torch.clamp(i22 - l20 * l20 - l21 * l21, min=1e-20))
     C = [[l00, zero, zero], [l10, l11, zero], [l20, l21, l22]]
-    gp = g_p
-    zv = torch.stack([i00 * gp[0] + i01 * gp[1] + i02 * gp[2],
-                      i01 * gp[0] + i11 * gp[1] + i12 * gp[2],
-                      i02 * gp[0] + i12 * gp[1] + i22 * gp[2]])
     return vinv6, C, zv
+
+
+def damped_u(lam, red27, cam_fixed):
+    """The LM-damped camera blocks U [K,6,6] and g_c [K,6] from the
+    undamped rows red27 [K,27] (the reference's `_damp_U_cm`: identity
+    blocks and zero gradients for fixed cameras)."""
+    from bundleadjustment_tpu_torch.solvers.dense_ba import SYM6_IDX
+
+    U = red27[:, torch.from_numpy(SYM6_IDX).to(red27.device)]  # [K, 6, 6]
+    eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
+    dU = torch.clamp(torch.diagonal(U, dim1=-2, dim2=-1), min=1e-6)
+    U = U + (lam * dU)[..., None] * eye6
+    U = torch.where(cam_fixed[:, None, None], eye6, U)
+    g_c = torch.where(cam_fixed[:, None], torch.zeros_like(red27[:, 21:]),
+                      red27[:, 21:])
+    return U, g_c
 
 
 def damped_system(lam, red27, cam_fixed, S_qqt, red6):
@@ -318,16 +344,8 @@ def damped_system(lam, red27, cam_fixed, S_qqt, red6):
     for fixed cameras, the reference's `_damp_U_cm`) + 1e-8 I - S_qqt and
     b = -(g_c - red6) (g_c zero for fixed cameras), all in (i, k) order (row
     i*K + k), so the solution comes back as [6, K]."""
-    from bundleadjustment_tpu_torch.solvers.dense_ba import SYM6_IDX
-
     K = red27.shape[0]
-    U = red27[:, torch.from_numpy(SYM6_IDX).to(red27.device)]  # [K, 6, 6]
-    eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
-    dU = torch.clamp(torch.diagonal(U, dim1=-2, dim2=-1), min=1e-6)
-    U = U + (lam * dU)[..., None] * eye6
-    U = torch.where(cam_fixed[:, None, None], eye6, U)
-    g_c = torch.where(cam_fixed[:, None], torch.zeros_like(red27[:, 21:]),
-                      red27[:, 21:])
+    U, g_c = damped_u(lam, red27, cam_fixed)
     E = torch.zeros((6, K, 6, K), dtype=U.dtype, device=U.device)
     ar = torch.arange(K, device=U.device)
     E[:, ar, :, ar] = U

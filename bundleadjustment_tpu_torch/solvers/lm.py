@@ -6,8 +6,9 @@ become Python loops whose accept/reject decisions stay on the device as
 and state frozen once `done` is set.
 
 - `ba_solve`: flat observation-table engine (Nielsen gain-ratio damping,
-  dense Schur + Cholesky); the pipeline uses it for problems under
-  `ba_layout_auto_min_obs` observations.
+  dense Schur + Cholesky, or matrix-free PCG with `solver="pcg"`); the
+  pipeline uses it for problems under `ba_layout_auto_min_obs`
+  observations.
 - `motion_only_ba`: per-camera 6x6 LM with chi2 pruning between outer
   rounds; the JAX `vmap` is an explicit leading batch axis here.
 """
@@ -27,7 +28,9 @@ from bundleadjustment_tpu_torch.solvers import schur as schur_mod
 class LMConfig:
     max_iters: int = 10
     lam0: float = 1e-4
-    solver: str = "dense"  # only "dense" (Cholesky) is ported; "pcg" raises
+    solver: str = "dense"  # "dense" (Cholesky) | "pcg" (matrix-free CG)
+    pcg_iters: int = 50
+    pcg_tol: float = 1e-6  # stops nothing, as in the reference (schur.pcg)
     robust: bool = True
     rtol: float = 1e-9  # relative cost-decrease tolerance for the freeze
 
@@ -37,11 +40,12 @@ class LMConfig:
 CHEIRALITY_PENALTY = 1.0e4
 
 
+SOLVERS = ("dense", "pcg")
+
+
 def check_solver(config):
-    if config.solver != "dense":
-        raise NotImplementedError(
-            f"ba_solver={config.solver!r} is not ported yet (ROADMAP queue 1: "
-            "PCG); use 'dense'")
+    if config.solver not in SOLVERS:
+        raise ValueError(f"unknown solver {config.solver!r}; one of {SOLVERS}")
 
 
 def _huber_rho(r2, robust):
@@ -86,7 +90,11 @@ def ba_solve(problem, cam_rt6, points, config=LMConfig()):
         blocks = schur_mod.build_blocks(
             r, Jc, Jp, problem.cam_idx, problem.pt_idx, n_cams, n_pts, lam,
             problem.cam_fixed, problem.pt_fixed)
-        dc = schur_mod.solve_schur_dense(blocks)
+        if config.solver == "dense":
+            dc = schur_mod.solve_schur_dense(blocks)
+        else:
+            dc = schur_mod.solve_schur_pcg(blocks, config.pcg_iters,
+                                           config.pcg_tol)
         dp = schur_mod.back_substitute(blocks, dc)
         R_new, t_new, pts_new = _apply_update(
             R, t, points, dc, dp, problem.cam_fixed, problem.pt_fixed)

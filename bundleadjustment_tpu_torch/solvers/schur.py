@@ -1,9 +1,15 @@
 """Schur-complement normal equations for the flat engine.
 
-Port of `bundleadjustment_tpu/solvers/schur.py` (dense mode). The camera
-system S dc = b with S = U - W V^-1 W^T, b = -(g_c - W V^-1 g_p), then
+Port of `bundleadjustment_tpu/solvers/schur.py`. The camera system
+S dc = b with S = U - W V^-1 W^T, b = -(g_c - W V^-1 g_p), then
 dp = -V^-1 (g_p + W^T dc). The JAX `segment_sum` block build becomes
-`index_add_`. The PCG mode is not ported (ROADMAP queue 1).
+`index_add_`. Two solve modes, as the reference's:
+
+- dense: S materialised (the matvec applied to the identity), Cholesky;
+- pcg: matrix-free conjugate gradient on S with a block-Jacobi (damped
+  6x6 U blocks) preconditioner, a fixed number of iterations with no host
+  synchronisation inside (`pcg`, shared by the flat, dense and sharded
+  engines).
 """
 
 from __future__ import annotations
@@ -124,3 +130,50 @@ def solve_schur_dense(blocks):
     S = cols.T + 1e-8 * eye
     b = schur_rhs(blocks).reshape(-1)
     return cholesky_solve_nan(S, b).reshape(K, 6)
+
+
+def _guard(x):
+    """The reference's 1e-30 guard of a CG denominator (a 0-d tensor)."""
+    return torch.where(torch.abs(x) < 1e-30, torch.full_like(x, 1e-30), x)
+
+
+def pcg(matvec, b, Minv, max_iters):
+    """Block-Jacobi preconditioned CG on S x = b from x = 0: `matvec(x)`
+    gives S x for x [K, 6], Minv [K, 6, 6] is the preconditioner. Runs
+    exactly `max_iters` iterations; alpha and beta stay 0-d tensors on the
+    device, so nothing synchronises with the host.
+
+    The reference's tolerance stops nothing: its "freeze once converged"
+    (`bundleadjustment_tpu/solvers/schur.py:181-182`) keeps the new iterate
+    on both branches, and the dense engine's loop has no tolerance at all.
+    For parity the port runs every iteration too."""
+    x = torch.zeros_like(b)
+    r = b
+    z = torch.einsum("kij,kj->ki", Minv, r)
+    p = z
+    rz = torch.sum(r * z)
+    for _ in range(max_iters):
+        Sp = matvec(p)
+        alpha = rz / _guard(torch.sum(p * Sp))
+        x = x + alpha * p
+        r = r - alpha * Sp
+        z = torch.einsum("kij,kj->ki", Minv, r)
+        rz_new = torch.sum(r * z)
+        p = z + (rz_new / _guard(rz)) * p
+        rz = rz_new
+    return x
+
+
+def block_jacobi(U):
+    """The preconditioner: the inverses of the damped 6x6 U blocks
+    (`inv_ex`: a singular block gives non-finite values, as the reference's
+    `jnp.linalg.inv`, instead of a host-side error check)."""
+    return torch.linalg.inv_ex(U)[0]
+
+
+def solve_schur_pcg(blocks, max_iters=50, tol=1e-6):
+    """Matrix-free PCG solve of S dc = b. `tol` is accepted for the
+    reference's signature and, as there, stops nothing (see `pcg`)."""
+    del tol
+    return pcg(lambda x: schur_matvec(blocks, x[None])[0], schur_rhs(blocks),
+               block_jacobi(blocks.U), max_iters)

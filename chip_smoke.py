@@ -70,11 +70,33 @@ script exits non-zero without printing the final line:
    standard run once as a user would start it (the BA engine follows the
    observation count and is reported) and once with `--ba-layout
    dense_landmark`, so that kernels B and C solve a monocular map;
-11. per-path launch check: every kernel was launched by the run of the path
+11. dense PCG solve (after phase 6): the phase-4 problem with
+   `LMConfig(solver="pcg", pcg_iters=60)`, kernels against plain versions
+   (cameras within 5e-3, the JAX package's PCG bound), B launched at least
+   once an LM iteration and C, K5, D, E and B with back-substitution never;
+   ms per LM iteration of PCG and of the exact solve, in turns, and one
+   PCG iteration's device time by kernel (one profiler session);
+12. flat sharded PCG (`parallel/sharded_ba.py`) at 64c/10k in an NCCL
+   group of one against the single-device flat PCG solve on the card:
+   cost0, cameras within 5e-3, and the all-reduces and their bytes equal
+   to the count the algorithm implies (1 + 10 x (4 + 60)); then
+   `measure_scaling` at world size 1;
+13. the 40-frame sequence through the CLI with `--ba-solver pcg` and with
+   `--global-ba windowed` (ATE < 0.05 m each; the window counts printed);
+14. the config-7 protocol's depth-seeded run (protocols.py:500-530, 100
+   frames 640x480 sweep, 2,500 features, `depth_landmarks`, no guided
+   local-map tracking): ATE < 0.05 m; the map finalize solved (keyframes,
+   landmarks, observations, longest track O, its Schur route) beside the
+   JAX package's TPU record's counts, the launches of A, B, C and D, the
+   seconds spent seeding, and kernel C against route (c) on its final
+   system;
+15. per-path launch check: every kernel was launched by the run of the path
    that carries it (A, B, B with back-substitution and C: phase 8; K5:
    phase 9, whose local BAs also launch B and C; D: phase 5; E: phase 6, at
    least 10 times; A in every monocular run, B and C in the dense standard
-   run). Each count is reset just before that run and read just after it.
+   run; B in the dense PCG solve; A and B in the PCG pipeline and the
+   depth-seeded run; A in the windowed run). Each count is reset just
+   before that run and read just after it.
 
 Then a `{"kernels": [...]}` line and, last, `{"ok": true, "device": ...}`.
 Needs one CUDA device; exits non-zero without one.
@@ -119,7 +141,10 @@ KERNELS = {
 # and evals still go through B and C)
 _DENSE = ("dense_eval_assemble", "dense_eval_assemble_bs", "schur_prepare_s")
 ALSO_LAUNCHED = {"pipeline_sharded": _DENSE,
-                 "pipeline_pnp": ("hamming_top2",),
+                 "dense_pcg_solve": ("dense_eval_assemble",),
+                 "pipeline_pcg": ("hamming_top2", "dense_eval_assemble"),
+                 "pipeline_windowed": ("hamming_top2",),
+                 "pipeline_depth_seeded": ("hamming_top2", "dense_eval_assemble"),
                  "pipeline_essential_or_homography": ("hamming_top2",),
                  "pipeline_standard": ("hamming_top2",),
                  "pipeline_standard_dense": ("hamming_top2", *_DENSE)}
@@ -226,6 +251,34 @@ def device_times(fn, reps=10, tries=3, kernel=None):
     full = sorted((x for x in sessions if len(x["per_kernel"]) == most),
                   key=lambda x: x["ms"])
     return {**full[(len(full) - 1) // 2], "sessions_ms": [x["ms"] for x in sessions]}
+
+
+def device_breakdown(fn, top=8):
+    """One torch.profiler session over fn() (after a warm-up call): the wall
+    ms (host clock, ended by a synchronise), the device ms summed over every
+    kernel record, the kernel launches, and the `top` kernels by device
+    time with their launches and ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    per = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            d = per.setdefault(kernel_name(e.name), [0, 0.0])
+            d[0] += 1
+            d[1] += e.time_range.elapsed_us() / 1e3
+    busy = sum(d[1] for d in per.values())
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"wall_ms": wall, "device_ms": busy,
+            "launches": sum(d[0] for d in per.values()),
+            "top": [{"kernel": k, "launches": d[0], "ms": d[1]} for k, d in ranked]}
 
 
 def device_time(fn, reps=10, tries=3, kernel=None):
@@ -895,13 +948,20 @@ def schur_step_routes(device, n_all, max_obs=128, parts=True):
     landmarks seen by every camera (tracks cut to max_obs), on the same
     inputs: C alone ("route_s"), and D + Pf + Q Q^T ("route_prepare"), with
     (parts) Pf (one index_add_) and Q Q^T (one matmul) also timed alone."""
+    prob, cams, pts = track_dense(device, n_all=n_all, max_obs=max_obs)
+    return {"n_all": n_all, **routes_on(prob, cams, pts, parts)}
+
+
+def routes_on(prob, cams, pts, parts=True):
+    """The two Schur-step routes on one dense problem's seed blocks (see
+    schur_step_routes), each timed as device ms a call."""
     import torch
 
     from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat
     from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
     from bundleadjustment_tpu_torch.solvers.dense_ba import _to_cm
 
-    prob, cams, pts = track_dense(device, n_all=n_all, max_obs=max_obs)
+    device = cams.device
     cm = _to_cm(prob)
     O, L = cm.cam_t.shape
     K = cm.cam_fixed.shape[0]
@@ -921,8 +981,7 @@ def schur_step_routes(device, n_all, max_obs=128, parts=True):
         G_ = dk.schur_prepare(*p_args)[0]
         return dk.qqt(dk.pf_index_add(G_, cm.cam_t, K), K)
 
-    routes = {"n_all": n_all, "O": O, "n_obs": int(cm.valid_t.sum()),
-              "slot_pairs": int(pairs)}
+    routes = {"O": O, "n_obs": int(cm.valid_t.sum()), "slot_pairs": int(pairs)}
     # (label, call, a kernel it launches once per call: one full profile
     # is then enough)
     timed = [("route_s", lambda: dk.schur_prepare_s(*p_args, red, cm.cam_fixed),
@@ -964,11 +1023,13 @@ def phase_large_o_kernels(device, results):
                                            res[name]["max_abs_err"])
 
 
-def solve_both_ways(phase, prob, cams, pts, extra, tables=("KERNEL_OPS", "PLAIN_OPS")):
-    """10 LM iterations of `dense_ba_solve` through the kernels and through
-    the plain versions (`tables`: the names of the two DenseOps tables);
-    cameras within 5e-4, final costs within rel 1e-3 and a cost that
-    decreases. Returns the launch counts of the kernel run."""
+def solve_both_ways(phase, prob, cams, pts, extra, tables=("KERNEL_OPS", "PLAIN_OPS"),
+                    cfg=None, cam_atol=5e-4):
+    """10 LM iterations of `dense_ba_solve` (`cfg`, default the exact solve)
+    through the kernels and through the plain versions (`tables`: the names
+    of the two DenseOps tables); cameras within `cam_atol`, final costs
+    within rel 1e-3 and a cost that decreases. Returns the launch counts of
+    the kernel run."""
     import torch
 
     from bundleadjustment_tpu_torch import kernels
@@ -976,7 +1037,7 @@ def solve_both_ways(phase, prob, cams, pts, extra, tables=("KERNEL_OPS", "PLAIN_
     from bundleadjustment_tpu_torch.solvers.dense_ba import dense_ba_solve
     from bundleadjustment_tpu_torch.solvers.lm import LMConfig
 
-    cfg = LMConfig(max_iters=10)
+    cfg = cfg or LMConfig(max_iters=10)
     out = {}
     for label, ops in zip(("kernel", "plain"), (getattr(dk, t) for t in tables)):
         torch.cuda.synchronize()
@@ -990,11 +1051,12 @@ def solve_both_ways(phase, prob, cams, pts, extra, tables=("KERNEL_OPS", "PLAIN_
     cp, _, cost_p, sp, _ = out["plain"]
     cam_err = max_abs(ck, cp)
     rel = abs(cost_k - cost_p) / abs(cost_p)
-    emit({"phase": phase, **extra, "ops": list(tables), "iters": 10, "cost0": c0,
-          "cost_kernel": cost_k, "cost_plain": cost_p, "cost_rel_diff": rel,
-          "cams_max_abs_diff": cam_err, "wall_s_kernel": sk, "wall_s_plain": sp,
+    emit({"phase": phase, **extra, "ops": list(tables), "iters": cfg.max_iters,
+          "solver": cfg.solver, "cost0": c0, "cost_kernel": cost_k,
+          "cost_plain": cost_p, "cost_rel_diff": rel, "cams_max_abs_diff": cam_err,
+          "cams_atol": cam_atol, "wall_s_kernel": sk, "wall_s_plain": sp,
           "launches": counts})
-    if not (rel < 1e-3 and cam_err < 5e-4 and cost_k < c0):
+    if not (rel < 1e-3 and cam_err < cam_atol and cost_k < c0):
         raise AssertionError(f"{phase}: kernel and plain runs disagree or the "
                              "cost did not decrease")
     return counts
@@ -1019,11 +1081,12 @@ def phase_large_o_solve(device):
                             "O": O, "n_obs": int(prob.valid.sum())})
 
 
-def lm_iteration_ms(prob, cams, pts, ops, short=10, long=30, tries=3):
-    """Milliseconds per LM iteration of `dense_ba_solve` with `ops`: the
-    host-clock time of a `long`-iteration solve less that of a `short` one
-    (each the best of `tries`, ended by a synchronise), over the difference
-    in iterations, so the seed eval and the set-up cancel."""
+def lm_iteration_ms(prob, cams, pts, ops, short=10, long=30, tries=3, **lm):
+    """Milliseconds per LM iteration of `dense_ba_solve` with `ops` (and the
+    LMConfig fields `lm`): the host-clock time of a `long`-iteration solve
+    less that of a `short` one (each the best of `tries`, ended by a
+    synchronise), over the difference in iterations, so the seed eval and
+    the set-up cancel."""
     import torch
 
     from bundleadjustment_tpu_torch.solvers.dense_ba import dense_ba_solve
@@ -1034,7 +1097,7 @@ def lm_iteration_ms(prob, cams, pts, ops, short=10, long=30, tries=3):
         for _ in range(tries + 1):  # the first is the warm-up
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            dense_ba_solve(prob, cams, pts, LMConfig(max_iters=iters), ops=ops)
+            dense_ba_solve(prob, cams, pts, LMConfig(max_iters=iters, **lm), ops=ops)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         return min(times[1:])
@@ -1071,6 +1134,131 @@ def phase_chol_solve_path(device):
         raise AssertionError("the solve through kernel E and the solve through "
                              "the library Cholesky disagree")
     return counts
+
+
+# the slice's PCG budget: the pipeline's default (PipelineConfig.pcg_iters)
+PCG_ITERS = 60
+# kernels the PCG step must not launch: the exact routes' Schur kernels,
+# B with back-substitution and the blocked Cholesky
+NOT_ON_PCG = ("dense_eval_assemble_bs", "schur_prepare_s", "schur_qqt_partial",
+              "schur_prepare", "chol_solve")
+
+
+def phase_dense_pcg_solve(device):
+    """The phase-4 problem (128c/100k/O=8, gauge fixed) with PCG: 10 LM
+    iterations through the kernels (B without back-substitution only) and
+    through the plain versions; cameras within the JAX package's PCG bound
+    (tests/test_dense_ba.py: 5e-3), costs within rel 1e-3, the cost falling;
+    B launched at least once an iteration and none of NOT_ON_PCG. Then ms
+    per LM iteration of PCG and of the exact solve, in turns. Returns the
+    kernel run's launch counts."""
+    from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
+    from bundleadjustment_tpu_torch.solvers.dense_ba import dense_ba_solve
+    from bundleadjustment_tpu_torch.solvers.lm import LMConfig
+
+    prob, cams, pts = synthetic_dense(128, 100_000, 6, 8, device, fix_gauge=True)
+    cfg = LMConfig(max_iters=10, solver="pcg", pcg_iters=PCG_ITERS)
+    counts = solve_both_ways("dense_pcg_solve", prob, cams, pts,
+                             {"K": 128, "L": 100_000, "pcg_iters": PCG_ITERS},
+                             cfg=cfg, cam_atol=5e-3)
+    pcg = dict(solver="pcg", pcg_iters=PCG_ITERS)
+    ms = [lm_iteration_ms(prob, cams, pts, dk.KERNEL_OPS, **lm)
+          for lm in ({}, pcg, pcg, {})]
+    # where one PCG LM iteration's time goes (with the seed eval)
+    one = lambda: dense_ba_solve(prob, cams, pts, LMConfig(max_iters=1, **pcg))  # noqa: E731
+    emit({"phase": "dense_pcg_vs_exact", "K": 128, "L": 100_000,
+          "pcg_iters": PCG_ITERS, "lm_iteration_ms_exact": [ms[0], ms[3]],
+          "lm_iteration_ms_pcg": [ms[1], ms[2]],
+          "pcg_one_iteration_profile": device_breakdown(one)})
+    wrong = {n: counts[n] for n in NOT_ON_PCG if counts[n]}
+    if counts["dense_eval_assemble"] < cfg.max_iters or wrong:
+        raise AssertionError(f"the PCG solve launched B {counts['dense_eval_assemble']}"
+                             f" times (< {cfg.max_iters}) or other kernels: {wrong}")
+    return counts
+
+
+def phase_flat_sharded_pcg(device, n_cams=64, n_pts=10_000):
+    """The flat landmark-sharded engine (`parallel/sharded_ba.py`, PCG) in an
+    NCCL group of one against the single-device flat `ba_solve(solver=
+    "pcg")` on the card (make_synthetic_scene, camera 0 and the two most
+    observed cameras fixed): cost0 within rel 1e-4, cameras within 5e-3
+    (tests/test_sharded_ba.py's bounds), and exactly 1 + 10 x
+    all_reduces_per_iter(PCG_ITERS) all-reduces of the predicted bytes.
+    Then `measure_scaling` at world size 1 on the same group."""
+    import numpy as np
+    import torch
+
+    from bundleadjustment_tpu_torch.data.synthetic import make_synthetic_scene
+    from bundleadjustment_tpu_torch.parallel import multihost
+    from bundleadjustment_tpu_torch.parallel import sharded_ba as sb
+    from bundleadjustment_tpu_torch.parallel.scaling import measure_scaling
+    from bundleadjustment_tpu_torch.solvers.lm import LMConfig, ba_solve
+    from bundleadjustment_tpu_torch.solvers.residuals import BAProblem
+
+    sc = make_synthetic_scene(n_cams=n_cams, n_pts=n_pts, obs_per_pt=6,
+                              pixel_noise=0.5, seed=0)
+    cf = np.zeros(n_cams, bool)
+    cf[0] = True
+    gauge = np.argsort(-np.bincount(sc.cam_idx[sc.valid], minlength=n_cams),
+                       kind="stable")[:2]
+    cf[gauge] = True
+    sc.extr_init[gauge] = sc.extr_gt[gauge]
+    cfg = LMConfig(max_iters=10, solver="pcg", pcg_iters=PCG_ITERS)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    flat = BAProblem(K4=t(sc.K4), cam_idx=t(sc.cam_idx).long(),
+                     pt_idx=t(sc.pt_idx).long(), uv=t(sc.uv), sigma2=t(sc.sigma2),
+                     valid=t(sc.valid), cam_fixed=t(cf),
+                     pt_fixed=torch.zeros(n_pts, dtype=torch.bool, device=device))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cams_1, _, info_1 = ba_solve(flat, t(sc.extr_init), t(sc.points_init), cfg)
+    torch.cuda.synchronize()
+    wall_1 = time.perf_counter() - t0
+    prob, _, _ = sb.shard_problem(sc.K4, sc.cam_idx, sc.pt_idx, sc.uv, sc.sigma2,
+                                  sc.valid, cf, sc.points_init, 1, 0, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = multihost.init_process_group(0, 1, os.path.join(tmp, "rdv"),
+                                               "cuda")
+        try:
+            group = multihost.default_group()
+            sb.sharded_ba_solve(prob, t(sc.extr_init), LMConfig(max_iters=1),
+                                group)  # NCCL builds its communicator here
+            before = dict(multihost.COLLECTIVES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cams_s, _, info_s = sb.sharded_ba_solve(prob, t(sc.extr_init), cfg, group)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            n_red = multihost.COLLECTIVES["all_reduce"] - before["all_reduce"]
+            n_bytes = (multihost.COLLECTIVES["all_reduce_bytes"]
+                       - before["all_reduce_bytes"])
+            scaling = measure_scaling(n_landmarks=n_pts, n_cams=n_cams,
+                                      obs_per_pt=6, device_counts=[1],
+                                      lm_iters=5, pcg_iters=PCG_ITERS,
+                                      repeats=2, layout="flat", solver="pcg",
+                                      device=device)
+        finally:
+            multihost.destroy_process_group()
+    want_red = 1 + cfg.max_iters * sb.all_reduces_per_iter(PCG_ITERS)
+    want_bytes = 4 + cfg.max_iters * sb.all_reduce_bytes_per_iter(n_cams, PCG_ITERS)
+    cost0 = (float(info_s["cost0"]), float(info_1["cost0"]))
+    cam_err = max_abs(cams_s, cams_1)
+    emit({"phase": "flat_sharded_pcg", "backend": backend, "world_size": 1,
+          "K": n_cams, "L": n_pts, "n_obs": int(sc.valid.sum()),
+          "pcg_iters": PCG_ITERS, "iters": cfg.max_iters, "cost0": cost0,
+          "cost": (float(info_s["cost"]), float(info_1["cost"])),
+          "cams_max_abs_diff": cam_err, "all_reduces": n_red,
+          "all_reduces_expected": want_red, "all_reduce_bytes": n_bytes,
+          "all_reduce_bytes_expected": want_bytes, "wall_s_sharded": wall_s,
+          "wall_s_single": wall_1, "measure_scaling": scaling})
+    if backend != "nccl" or n_red != want_red or n_bytes != want_bytes:
+        raise AssertionError(f"flat sharded PCG: {backend}, {n_red} all-reduces "
+                             f"({want_red} expected), {n_bytes} bytes "
+                             f"({want_bytes} expected)")
+    if not (abs(cost0[0] - cost0[1]) <= 1e-4 * abs(cost0[1]) and cam_err < 5e-3
+            and float(info_s["cost"]) < cost0[0]):
+        raise AssertionError("the flat sharded PCG solve and the single-device "
+                             "solve disagree, or the cost did not fall")
 
 
 def phase_two_view(device):
@@ -1293,6 +1481,128 @@ def phase_pipeline_monocular(device, data, tmp, runs):
           "ate_bound_m": ATE_STANDARD_BOUND_M, **ates})
 
 
+def phase_pipeline_solvers(device, data, n_frames, runs):
+    """The slice's pipeline modes through the CLI on the 40-frame sequence:
+    `--ba-solver pcg` (every BA by PCG: A and B) and `--global-ba windowed`
+    (the final global BAs by windows + halo + pose graph); ATE < 0.05 m
+    each, and the windowed run's window counts printed."""
+    _, _, runs["pipeline_pcg"] = phase_pipeline(
+        device, data, n_frames, "pipeline_pcg", ("--ba-solver", "pcg"))
+    pipe, _, runs["pipeline_windowed"] = phase_pipeline(
+        device, data, n_frames, "pipeline_windowed", ("--global-ba", "windowed"))
+    emit({"phase": "pipeline_windowed_runs", "windowed_global_bas": [
+        {k: r[k] for k in ("windows", "observations", "global_landmarks",
+                           "pg_cost0", "pg_cost")} for r in pipe.windowed_runs]})
+    if not pipe.windowed_runs or not all(r["windows"] >= 1 for r in pipe.windowed_runs):
+        raise AssertionError("the windowed global BA did not run")
+
+
+# config 7 of the JAX package's protocols (protocols.py:500-530, which
+# imports jax, so its settings are repeated here): 640x480, 2,500 features,
+# depth seeding at every keyframe, no guided local-map tracking
+CONFIG7_FRAMES = 100
+CONFIG7_RENDER = dict(width=640, height=480, fx=525.0, fy=525.0, trajectory="sweep",
+                      motion_step=0.04, rot_step=0.01, seed=17)
+CONFIG7_PIPELINE = dict(init_type="gtdepth", estimation="ba", local_ba=True,
+                        n_features=2500, n_levels=8, keyframe_ratio=0.25,
+                        depth_landmarks=True, depth_landmarks_max=2000,
+                        track_local_map=False)
+# the JAX package's TPU record of that map (BASELINE.md:679-686): counts of
+# a 140-frame, 3,500-feature run, not timings
+CONFIG7_TPU_MAP = {"keyframes": 71, "landmarks_in_solve": 10_842,
+                   "observations": 156_774, "O": 72}
+
+
+def phase_pipeline_depth_seeded(device, n_frames=CONFIG7_FRAMES):
+    """The config-7 protocol's run: render, process every frame, finalize;
+    ATE < 0.05 m. Prints the map finalize solved (keyframes, active
+    landmarks, landmarks and observations in the solve, the longest track
+    O and the Schur route it takes) beside the TPU record's counts, the
+    launches of A, B, C and D, and the seconds spent seeding. Then times
+    kernel C against route (c) on the final system (evidence for the
+    S_KERNEL_MAX_O gate only). Returns the run's launch counts."""
+    import numpy as np
+    import torch
+
+    from bundleadjustment_tpu_torch import kernels
+    from bundleadjustment_tpu_torch.data.synthetic import render_layered_scene
+    from bundleadjustment_tpu_torch.data.tum import FrameData
+    from bundleadjustment_tpu_torch.metrics.ate import evaluate_ate
+    from bundleadjustment_tpu_torch.pipeline.config import PipelineConfig
+    from bundleadjustment_tpu_torch.pipeline.driver import BundleAdjustmentPipeline
+    from bundleadjustment_tpu_torch.solvers.dense_ba import (
+        densify_problem_auto,
+        schur_route,
+    )
+
+    frames, _ = render_layered_scene(n_frames=n_frames, **CONFIG7_RENDER)
+    K4 = np.array([525.0, 525.0, (640 - 1) / 2.0, (480 - 1) / 2.0], np.float32)
+    pipe = BundleAdjustmentPipeline(PipelineConfig(**CONFIG7_PIPELINE), K4, 640,
+                                    480, device=device)
+    seed_s = [0.0]
+    for name in ("_seed_depth_landmarks", "_densify_pending_seeds"):
+        fn = getattr(pipe, name)
+
+        def timed(*a, _fn=fn):
+            t0 = time.perf_counter()
+            out = _fn(*a)
+            seed_s[0] += time.perf_counter() - t0
+            return out
+
+        setattr(pipe, name, timed)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    statuses = [pipe.process_frame(FrameData(
+        index=i, timestamp=f["timestamp"], gray=f["gray"], depth=f["depth"],
+        rgb=None, gt_cam_to_world=f["gt_cam_to_world"]))
+        for i, f in enumerate(frames)]
+    torch.cuda.synchronize()
+    frames_s = time.perf_counter() - t0
+    m = pipe.map
+    kfs = m.active_keyframes().tolist()
+    snap = m.snapshot_problem(kfs, min_obs=2)
+    prob, _, O = densify_problem_auto(
+        snap.K4, snap.cam_idx, snap.pt_idx, snap.uv, snap.sigma2, snap.valid,
+        snap.cam_fixed, snap.points.shape[0], max_obs=pipe.cfg.ba_max_obs_per_pt,
+        device=device)
+    solved = {"keyframes": len(kfs), "landmarks_active": int(len(m.active_points())),
+              "landmarks_in_solve": int(snap.n_pts),
+              "observations": int(np.asarray(snap.valid).sum()), "O": O,
+              "route": schur_route(O)}
+    t1 = time.perf_counter()
+    pipe.finalize()
+    torch.cuda.synchronize()
+    finalize_s = time.perf_counter() - t1
+    counts = kernels.launch_counts()
+    ts, mats = pipe.trajectory_cam_to_world()
+    gt_ts = np.array([f["timestamp"] for f in frames])
+    gt_xyz = np.array([f["gt_cam_to_world"][:3, 3] for f in frames])
+    ate = evaluate_ate(ts, mats[:, :3, 3], gt_ts, gt_xyz)["rmse"]
+    # C against route (c) on the final map's system
+    snap = m.snapshot_problem(m.active_keyframes().tolist(), min_obs=2)
+    prob, _, O_final = densify_problem_auto(
+        snap.K4, snap.cam_idx, snap.pt_idx, snap.uv, snap.sigma2, snap.valid,
+        snap.cam_fixed, snap.points.shape[0], max_obs=pipe.cfg.ba_max_obs_per_pt,
+        device=device)
+    routes = routes_on(prob, pipe._t(snap.extr), pipe._t(snap.points))
+    lost = [s for s in statuses[2:] if s not in ("tracked", "keyframe")]
+    emit({"phase": "pipeline_depth_seeded", "frames": n_frames,
+          "render": CONFIG7_RENDER, "pipeline": CONFIG7_PIPELINE,
+          "statuses": {k: statuses.count(k) for k in sorted(set(statuses))},
+          "ate_rmse_m": ate, "ate_bound_m": 0.05, "map_finalize_solved": solved,
+          "tpu_record_map": CONFIG7_TPU_MAP,
+          "ba_engines": sorted(set(e for _, e in pipe.ba_solves)),
+          "launches": counts, "frames_s": frames_s, "finalize_s": finalize_s,
+          "depth_seeding_s": seed_s[0], "phase_times": pipe.timers.report(),
+          "final_system": {"K": int(snap.n_cams), "L": int(snap.n_pts),
+                           "O": O_final, **routes}})
+    if not (ate < 0.05 and pipe.initialized and not lost):
+        raise AssertionError(f"depth-seeded run: ATE {ate} m (bound 0.05) or "
+                             f"frames lost: {statuses}")
+    return counts
+
+
 def phase_pipeline_shapes(pipe, results):
     """Time the dense-BA kernels at the pipeline's own final global-BA shape
     (every active keyframe, landmarks with >= 2 observations)."""
@@ -1351,7 +1661,9 @@ def main():
     phase_large_o_kernels(device, results)
     phase_dense_solve(device)
     runs = {"large_o_solve": phase_large_o_solve(device),
-            "chol_solve_path": phase_chol_solve_path(device)}
+            "chol_solve_path": phase_chol_solve_path(device),
+            "dense_pcg_solve": phase_dense_pcg_solve(device)}
+    phase_flat_sharded_pcg(device)
     phase_two_view(device)
     n_frames = 40
     with tempfile.TemporaryDirectory() as tmp:
@@ -1361,6 +1673,8 @@ def main():
         runs["pipeline_sharded"] = phase_pipeline_sharded(
             device, data, n_frames, res["ate_rmse"])
         phase_pipeline_monocular(device, data, tmp, runs)
+        phase_pipeline_solvers(device, data, n_frames, runs)
+    runs["pipeline_depth_seeded"] = phase_pipeline_depth_seeded(device)
     check_launches(runs)
     phase_pipeline_shapes(pipe, results)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

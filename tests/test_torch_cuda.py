@@ -270,6 +270,26 @@ def test_dense_solve_kernels_match_plain_on_card(cuda_device):
     assert float(ik["cost"]) < float(ik["cost0"])
 
 
+def test_dense_pcg_solve_kernels_match_plain_on_card(cuda_device):
+    """The dense PCG solve through kernel B (without back-substitution)
+    against the plain versions: cameras within the JAX package's PCG bound
+    (5e-3), costs within rel 1e-3; B launched once for the seed eval and
+    once an LM iteration, C, K5, D, E and B with back-substitution never."""
+    prob, cams, pts = _scene(8, 200, 32, 0.3, cuda_device)
+    cfg = LMConfig(max_iters=10, solver="pcg", pcg_iters=60)
+    kernels.reset_launch_counts()
+    ck, _, ik = td.dense_ba_solve(prob, cams, pts, cfg)
+    counts = kernels.launch_counts()
+    cp, _, ip = td.dense_ba_solve(prob, cams, pts, cfg, ops=dk.PLAIN_OPS)
+    np.testing.assert_allclose(ck.cpu().numpy(), cp.cpu().numpy(), atol=5e-3)
+    np.testing.assert_allclose(float(ik["cost"]), float(ip["cost"]), rtol=1e-3)
+    assert float(ik["cost"]) < float(ik["cost0"])
+    assert counts["dense_eval_assemble"] == 1 + cfg.max_iters
+    assert not any(counts[n] for n in ("dense_eval_assemble_bs", "schur_prepare_s",
+                                       "schur_qqt_partial", "schur_prepare",
+                                       "chol_solve"))
+
+
 def _prepare_args(device, copies):
     """The inputs of K5 and kernel D at 12 x `copies` cameras."""
     prob, cams, pts = _scene(12, 3000, 7, 0.4, device, copies=copies)

@@ -24,6 +24,10 @@ import bundleadjustment_tpu_torch.solvers.chol
 import bundleadjustment_tpu_torch.geometry.epipolar
 import bundleadjustment_tpu_torch.parallel.sharded_dense_ba
 import bundleadjustment_tpu_torch.parallel.multihost
+import bundleadjustment_tpu_torch.parallel.sharded_ba
+import bundleadjustment_tpu_torch.parallel.scaling
+import bundleadjustment_tpu_torch.parallel.posegraph
+import bundleadjustment_tpu_torch.parallel.windows
 import bundleadjustment_tpu_torch.data.track_scene
 import bundleadjustment_tpu_torch.data.synthetic
 import bundleadjustment_tpu_torch.data.replica

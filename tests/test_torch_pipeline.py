@@ -245,19 +245,8 @@ def test_unknown_modes_raise(field, value):
                                  device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [
-    ("global_ba_mode", "windowed"), ("ba_solver", "pcg"), ("depth_landmarks", True)])
-def test_unported_modes_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BundleAdjustmentPipeline(PipelineConfig(**{field: value}),
-                                 np.array([150.0, 150.0, 80.0, 60.0]), 160, 120,
-                                 device="cpu")
-
-
 @pytest.mark.parametrize("flags", [["--predetect"], ["--reconstruction-error", "gt.ply"],
-                                   ["--display-pointcloud"], ["--faces-type", "poisson"],
-                                   ["--global-ba", "windowed"], ["--ba-solver", "pcg"],
-                                   ["--depth-landmarks"]])
+                                   ["--display-pointcloud"], ["--faces-type", "poisson"]])
 def test_unported_cli_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--dataset-path", str(tmp_path), "--device", "cpu", *flags])

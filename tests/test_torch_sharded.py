@@ -226,11 +226,3 @@ def test_group_of_one_runs_the_collectives(tmp_path):
     np.testing.assert_array_equal(gathered, tsh.gather_points(pts_0, shard_of,
                                                               local_of))
 
-
-def test_sharded_solve_without_config_raises():
-    sc, cf = _sharded_scene()
-    prob, pts, _, _ = tsh.shard_dense_problem(
-        sc.K4, sc.cam_idx, sc.pt_idx, sc.uv, sc.sigma2, sc.valid, cf,
-        sc.points_init, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="PCG"):
-        tsh.sharded_dense_ba_solve(prob, T(sc.extr_init), pts)

@@ -114,9 +114,3 @@ def test_motion_only_matches_jax(rng, robust):
     np.testing.assert_array_equal(inl_t.numpy(), np.asarray(inl_j))
     assert not inl_t[:, :5].any()
 
-
-def test_pcg_not_ported(scene):
-    sc, cf = scene
-    with pytest.raises(NotImplementedError, match="PCG"):
-        tl.ba_solve(interop.from_reference(_flat(sc, cf), device="cpu"), T(sc.extr_init),
-                    T(sc.points_init), tl.LMConfig(solver="pcg"))

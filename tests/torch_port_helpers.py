@@ -92,3 +92,144 @@ def sharded_solve_rank(rank, world_size, init_file, scene, cam_fixed, n_iters,
                  cost0=float(info["cost0"]), cost=float(info["cost"]))
     finally:
         multihost.destroy_process_group()
+
+
+def flat_sharded_rank(rank, world_size, init_file, scene, cam_fixed, config,
+                      out_dir):
+    """One gloo rank of the port's flat landmark-sharded PCG solve on the
+    CPU (a torch.multiprocessing.spawn target): shards `scene` (a dict of
+    numpy fields of a SyntheticScene) round-robin over `world_size` ranks,
+    solves with the LMConfig fields in `config` and writes this rank's
+    cameras, gathered points, costs and all-reduce count to
+    out_dir/rank<r>.npz."""
+    import os
+
+    from bundleadjustment_tpu_torch.parallel import multihost
+    from bundleadjustment_tpu_torch.parallel.sharded_ba import (
+        shard_problem,
+        sharded_ba_solve,
+        unshard_points,
+    )
+    from bundleadjustment_tpu_torch.solvers.lm import LMConfig
+
+    torch.set_num_threads(1)
+    multihost.init_process_group(rank, world_size, init_file, device="cpu")
+    try:
+        prob, shard_of, local_of = shard_problem(
+            scene["K4"], scene["cam_idx"], scene["pt_idx"], scene["uv"],
+            scene["sigma2"], scene["valid"], cam_fixed, scene["points_init"],
+            world_size, rank, device="cpu")
+        group = multihost.default_group()
+        before = multihost.COLLECTIVES["all_reduce"]
+        cams, pts, info = sharded_ba_solve(
+            prob, torch.from_numpy(scene["extr_init"]), LMConfig(**config), group)
+        n_reduce = multihost.COLLECTIVES["all_reduce"] - before
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), cams=cams.numpy(),
+                 points=unshard_points(pts, shard_of, local_of, group),
+                 cost0=float(info["cost0"]), cost=float(info["cost"]),
+                 all_reduces=n_reduce)
+    finally:
+        multihost.destroy_process_group()
+
+
+def scaling_rank(rank, world_size, init_file, kwargs, out_dir):
+    """One gloo rank of `parallel.scaling.measure_scaling(**kwargs)` on the
+    CPU; rank 0 writes the result to out_dir/scaling.json."""
+    import json
+    import os
+
+    from bundleadjustment_tpu_torch.parallel import multihost
+    from bundleadjustment_tpu_torch.parallel.scaling import measure_scaling
+
+    torch.set_num_threads(1)
+    multihost.init_process_group(rank, world_size, init_file, device="cpu")
+    try:
+        out = measure_scaling(device="cpu", **kwargs)
+        if rank == 0:
+            with open(os.path.join(out_dir, "scaling.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        multihost.destroy_process_group()
+
+
+def spawn_ranks(target, nprocs, args, timeout_s=120):
+    """Run `target(rank, *args)` in `nprocs` spawned processes; fail the
+    test if they do not finish within `timeout_s`."""
+    import time
+
+    ctx = torch.multiprocessing.spawn(target, nprocs=nprocs, join=False, args=args)
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"the gloo ranks did not finish within {timeout_s} s")
+
+
+def synthetic_store(map_cls, make_scene, n_cams=12, n_pts=200, seed=21):
+    """tests/test_windows.py's `_build_synthetic_store` for a map store class
+    and a `make_synthetic_scene` of either package: a store whose keyframes
+    sit at the scene's noisy initial poses, with every observation.
+    Returns (scene, store)."""
+    sc = make_scene(n_cams=n_cams, n_pts=n_pts, pixel_noise=0.3,
+                    init_rot_noise=0.03, init_trans_noise=0.08, seed=seed)
+    m = map_cls(max_frames=64, max_points=4096, max_kp=256, K4=sc.K4)
+    kp_count = np.zeros(n_cams, int)
+    kp_of_obs = np.zeros(len(sc.cam_idx), int)
+    for n in range(len(sc.cam_idx)):
+        k = sc.cam_idx[n]
+        kp_of_obs[n] = kp_count[k]
+        kp_count[k] += 1
+    kp_xy = np.zeros((n_cams, kp_count.max(), 2), np.float32)
+    for n in range(len(sc.cam_idx)):
+        kp_xy[sc.cam_idx[n], kp_of_obs[n]] = sc.uv[n]
+    for k in range(n_cams):
+        m.add_frame(float(k), sc.extr_init[k], kp_xy[k, :kp_count[k]],
+                    np.zeros(kp_count[k], np.int32),
+                    np.ones(kp_count[k], np.float32),
+                    np.zeros((kp_count[k], 8), np.uint32))
+        m.set_keyframe(k)
+    for l in range(n_pts):
+        m.add_point(sc.points_init[l])
+    for n in range(len(sc.cam_idx)):
+        m.add_observation(int(sc.pt_idx[n]), int(sc.cam_idx[n]), int(kp_of_obs[n]))
+    return sc, m
+
+
+def windowed_rank(rank, world, init_file, out_dir):
+    """One gloo rank of the port's windowed global BA on the synthetic store
+    (window 6, stride 3); writes its map, window costs and collectives to
+    out_dir/rank<r>.npz."""
+    import os
+
+    from bundleadjustment_tpu_torch.data.synthetic import make_synthetic_scene
+    from bundleadjustment_tpu_torch.mapstate.scene import SceneMap
+    from bundleadjustment_tpu_torch.parallel import multihost
+    from bundleadjustment_tpu_torch.parallel.windows import windowed_global_ba
+
+    torch.set_num_threads(1)
+    multihost.init_process_group(rank, world, init_file, device="cpu")
+    try:
+        _, m = synthetic_store(SceneMap, make_synthetic_scene)
+        before = dict(multihost.COLLECTIVES)
+        info = windowed_global_ba(m, window=6, stride=3,
+                                  group=multihost.default_group(), device="cpu")
+        coll = {k: multihost.COLLECTIVES[k] - before[k] for k in before}
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), poses=m.kf_pose[:12],
+                 points=m.pt_pos[m.active_points()],
+                 window_cost=np.asarray(info["window_cost"]),
+                 windows=info["windows"], global_landmarks=info["global_landmarks"],
+                 **coll)
+    finally:
+        multihost.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """Run a module's tests with one intra-op thread (restored after): the
+    port's solver loops issue many small ops, which the test workers'
+    shared cores run faster without a thread pool each."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
