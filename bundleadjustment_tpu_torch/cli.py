@@ -21,14 +21,21 @@ seeds landmarks from the depth map at every keyframe.
 pnp` / `essential_or_homography` are the monocular configurations; `--seed`
 seeds their RANSAC sampler.
 
-Flags of modes that are not ported raise NotImplementedError naming the
-ROADMAP item that ports them: --predetect, --reconstruction-error,
---faces-type poisson, --display-pointcloud. --no-warmup, --matcher, --no-fused-tracking
-and --track-batch are accepted and change nothing (their --help says so):
-they tuned the JAX package's compilation and dispatch, which the port does
-not have; the JAX microbatch of --track-batch also froze the local-map
-snapshot for a batch, and its --help says how far the port's per-frame
-result stays from that.
+`--predetect` detects every frame first in batches of 32 (the frame axis
+over the ranks of the default process group when one is initialised), then
+tracks by matching and estimation only. `--no-fused-tracking` tracks every
+frame by the split path. `--reconstruction-error GT_PLY` aligns the map to
+a ground-truth cloud by ICP, stores the fitness as
+`results["reconstruction_error"]` and writes the comparison PLYs;
+`--faces-type poisson` meshes the map by Poisson reconstruction;
+`--display-pointcloud` writes live PLY snapshots of the map while it runs
+(`map_live.ply`, then `map_final.ply`) and `<prefix>_cloud.ply`.
+
+--no-warmup, --matcher and --track-batch are accepted and change nothing
+(their --help says so): they tuned the JAX package's compilation and
+dispatch, which the port does not have; the JAX microbatch of --track-batch
+also froze the local-map snapshot for a batch, and its --help says how far
+the port's per-frame result stays from that.
 """
 
 from __future__ import annotations
@@ -70,8 +77,11 @@ def build_parser():
                    help=no_op + "sends every Hamming top-2 search through "
                    "kernel A on cuda and its plain version on cpu")
     p.add_argument("--no-fused-tracking", action="store_true", default=False,
-                   help=no_op + "always tracks with the fused matcher, one "
-                   "frame at a time (see --track-batch)")
+                   help="track every frame by the split path: detect and "
+                   "match on the device, associate the matches with "
+                   "landmarks on the host, then estimate the pose (the default "
+                   "fuses detection, matching, association and motion-only "
+                   "BA of a tracked frame)")
     p.add_argument("--no-warmup", action="store_true", default=False,
                    help=no_op + "compiles nothing ahead of the first frame")
     p.add_argument("--track-batch", type=int, default=8,
@@ -119,27 +129,11 @@ def load_dataset(args):
     return ReplicaDataset(root=args.dataset_path, max_frames=args.frames)
 
 
-def _check_flags(args):
-    item = {"predetect": "--predetect",
-            "reconstruction_error": "metrics/reconstruction.py",
-            "display_pointcloud": "vis/{pointcloud,live}.py"}
-    for flag, what in item.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP queue 1: "
-                f"{what})")
-    if args.faces_type == "poisson":
-        raise NotImplementedError("--faces-type poisson is not ported yet "
-                                  "(ROADMAP queue 1: vis/poisson.py)")
-
-
 def config_from_args(args):
-    """The PipelineConfig of parsed CLI flags; raises NotImplementedError
-    for a mode that is not ported."""
+    """The PipelineConfig of parsed CLI flags."""
     from bundleadjustment_tpu_torch.pipeline.config import PipelineConfig
     from bundleadjustment_tpu_torch.pipeline.driver import check_config
 
-    _check_flags(args)
     cfg = PipelineConfig(
         init_type=args.init_type, estimation=args.estimation,
         faces_type=args.faces_type, dataset_name=args.dataset_name,
@@ -161,8 +155,13 @@ def run_cli(argv=None):
     from bundleadjustment_tpu_torch.data.tum import write_tum_trajectory
     from bundleadjustment_tpu_torch.geometry import np_se3
     from bundleadjustment_tpu_torch.metrics.ate import evaluate_ate
+    from bundleadjustment_tpu_torch.parallel.multihost import default_group
     from bundleadjustment_tpu_torch.pipeline.driver import BundleAdjustmentPipeline
-    from bundleadjustment_tpu_torch.vis.mesh import create_map_mesh, write_off
+    from bundleadjustment_tpu_torch.vis.mesh import (
+        create_map_mesh,
+        write_off,
+        write_ply,
+    )
 
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
@@ -171,7 +170,17 @@ def run_cli(argv=None):
                                     device=args.device)
     os.makedirs(args.output_path, exist_ok=True)
     prefix = os.path.join(args.output_path, output_prefix(args))
-    stats = pipe.run(ds)
+    viz = None
+    if args.display_pointcloud:
+        from bundleadjustment_tpu_torch.vis.live import LiveVisualizer
+
+        viz = LiveVisualizer(pipe, args.output_path, interval_s=1.0)
+    try:
+        stats = pipe.run(ds, predetect=args.predetect,
+                         group=default_group() if args.predetect else None)
+    finally:
+        if viz is not None:
+            viz.close()
 
     ts, mats = pipe.trajectory_cam_to_world()
     if args.trajectory:
@@ -182,8 +191,11 @@ def run_cli(argv=None):
                 for k in kf_slots]
     verts, faces, colors = create_map_mesh(pts, colors=pt_colors,
                                            cam_poses=cam_mats,
-                                           faces_type=args.faces_type)
+                                           faces_type=args.faces_type,
+                                           device=args.device)
     write_off(prefix + "_mesh.off", verts, faces, colors)
+    if args.display_pointcloud:
+        write_ply(prefix + "_cloud.ply", pts, colors=pt_colors)
 
     results = dict(stats)
     results["n_map_points"] = int(len(pts))
@@ -201,6 +213,17 @@ def run_cli(argv=None):
             results["ate_scale"] = ate["scale"]
         except ValueError:
             pass
+    if args.reconstruction_error:
+        from bundleadjustment_tpu_torch.metrics.reconstruction import (
+            reconstruction_error,
+        )
+        from bundleadjustment_tpu_torch.vis.mesh import read_ply_vertices
+
+        gt_cloud = read_ply_vertices(args.reconstruction_error)
+        first_kf = int(kf_slots[0]) if len(kf_slots) else 0
+        results["reconstruction_error"], _ = reconstruction_error(
+            pts, gt_cloud, first_kf_gt_pose=pipe.map.kf_gt[first_kf],
+            out_prefix=prefix, device=args.device)
     with open(prefix + "_results.json", "w") as f:
         json.dump(results, f, indent=2)
     print(json.dumps(results))

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from bundleadjustment_tpu_torch.device import resolve_device
 from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat
 
 
@@ -46,3 +47,12 @@ def backproject(K4, uv, depth):
     x = (uv[..., 0] - K4[..., 2]) / K4[..., 0] * depth
     y = (uv[..., 1] - K4[..., 3]) / K4[..., 1] * depth
     return torch.stack([x, y, depth], -1)
+
+
+def pixel_grid(height, width, dtype=torch.float32, device="cuda"):
+    """[H, W, 2] grid of (u, v) pixel coordinates on `device`."""
+    device = resolve_device(device)
+    v, u = torch.meshgrid(torch.arange(height, dtype=dtype, device=device),
+                          torch.arange(width, dtype=dtype, device=device),
+                          indexing="ij")
+    return torch.stack([u, v], -1)

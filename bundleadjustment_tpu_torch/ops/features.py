@@ -6,6 +6,11 @@ corners gated and ranked by the Harris response over a 1.2-scale pyramid,
 orientation, and rotation-steered BRIEF-256 packed into 8 words per
 keypoint (int32 tensors holding the reference's uint32 bit patterns).
 
+`detect_batch` detects a batch of frames [B, H, W] in one pass: every step
+works on the whole batch (the image helpers act on the last two axes), and
+`detect_and_describe(image)` is `detect_batch(image[None])` at B = 1, so a
+frame detected alone and in a batch goes through the same code.
+
 Numerics follow the reference op by op: the separable filters are shifted
 slices with weighted adds (no convolution, so no cuDNN path), the pyramid
 resize is two float32 matrix products with the same antialiased linear
@@ -74,6 +79,11 @@ def _disc_offsets(radius=15):
 
 
 _ORI_DY, _ORI_DX = _disc_offsets()
+# the disc's (dy, dx) zero-padded to a power of two for `_pairwise_sum`: a
+# padded offset is the keypoint itself at weight 0, so it adds +0 to the
+# moments, as zeros padded onto the products would
+_ORI_OFFSETS = np.zeros((2, 1 << (len(_ORI_DY) - 1).bit_length()), np.int64)
+_ORI_OFFSETS[:, :len(_ORI_DY)] = _ORI_DY, _ORI_DX
 
 
 def _gauss_kernel(sigma, radius):
@@ -108,9 +118,9 @@ def gaussian_blur(img, sigma=2.0, radius=3):
 
 
 def harris_response(img, k=0.04, window_sigma=1.5):
-    """Harris response map and Shi-Tomasi min-eigenvalue map."""
-    ix = _corr1d(_corr1d(img, [-1.0, 0.0, 1.0], 1), [1.0, 2.0, 1.0], 0)
-    iy = _corr1d(_corr1d(img, [-1.0, 0.0, 1.0], 0), [1.0, 2.0, 1.0], 1)
+    """Harris response map and Shi-Tomasi min-eigenvalue map of [..., H, W]."""
+    ix = _corr1d(_corr1d(img, [-1.0, 0.0, 1.0], -1), [1.0, 2.0, 1.0], -2)
+    iy = _corr1d(_corr1d(img, [-1.0, 0.0, 1.0], -2), [1.0, 2.0, 1.0], -1)
     s = _sep_conv(torch.stack([ix * ix, iy * iy, ix * iy]), _gauss_kernel(window_sigma, 3))
     sxx, syy, sxy = s[0], s[1], s[2]
     det = sxx * syy - sxy * sxy
@@ -121,15 +131,17 @@ def harris_response(img, k=0.04, window_sigma=1.5):
 
 
 def fast_corners(img, threshold):
-    """FAST-16: >= 9 contiguous circle pixels all brighter or all darker."""
-    shifted = torch.stack([torch.roll(img, (-int(dy), -int(dx)), dims=(0, 1))
+    """FAST-16 on [..., H, W]: >= 9 contiguous circle pixels all brighter or
+    all darker."""
+    shifted = torch.stack([torch.roll(img, (-int(dy), -int(dx)), dims=(-2, -1))
                            for dy, dx in _FAST_CIRCLE])
     bright = shifted > (img + threshold)[None]
     dark = shifted < (img - threshold)[None]
     weights = (1 << torch.arange(16, dtype=torch.int64, device=img.device))
+    weights = weights.reshape(16, *([1] * img.dim()))
 
     def contiguous9(m):
-        code = torch.sum(m.to(torch.int64) * weights[:, None, None], 0)
+        code = torch.sum(m.to(torch.int64) * weights, 0)
         y = code | (code << 16)
         for _ in range(8):
             y = y & (y >> 1)
@@ -161,32 +173,72 @@ def resize_matrix(dst, src):
 
 
 def _resize_linear(img, h_out, w_out):
-    wh = torch.from_numpy(resize_matrix(h_out, img.shape[0])).to(img.device)
-    ww = torch.from_numpy(resize_matrix(w_out, img.shape[1])).to(img.device)
-    return (wh @ img) @ ww.T
+    """Resize [B, H, W] frames: two batched products with the same weights
+    for every frame."""
+    B, H, W = img.shape
+    wh = torch.from_numpy(resize_matrix(h_out, H)).to(img.device)
+    ww = torch.from_numpy(resize_matrix(w_out, W)).to(img.device)
+    return torch.bmm(torch.bmm(wh.expand(B, h_out, H), img),
+                     ww.T.expand(B, W, w_out))
 
 
 def _nms3(score):
-    neigh = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
+    """3x3 non-maximum mask of [B, H, W] scores."""
+    neigh = F.max_pool2d(score[:, None], 3, stride=1, padding=1)[:, 0]
     return score >= neigh
 
 
+def _gather2d(img, yy, xx):
+    """img [B, H, W] at per-frame pixel indices yy, xx [B, ...]."""
+    B, H, W = img.shape
+    lin = torch.add(xx, yy, alpha=W).reshape(B, -1)
+    return torch.gather(img.reshape(B, H * W), 1, lin).reshape(yy.shape)
+
+
+def _pairwise_sum(x):
+    """Sum over the last axis in a fixed pairwise order (zero-padded to a
+    power of two, halves added elementwise): the same bits for a frame alone
+    or in a batch, where a CUDA `torch.sum` picks its order by the number of
+    rows."""
+    n = x.shape[-1]
+    if n & (n - 1):
+        x = F.pad(x, (0, (1 << (n - 1).bit_length()) - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _per_row(fn, *xs):
+    """fn of [B, M] tensors, on the CPU with each row padded to a multiple of
+    64 lanes: the CPU's vectorised atan2 / cos / sin round differently from
+    its scalar loop over the tail of a tensor, so every element of every
+    frame takes the vector loop, alone or in a batch. A CUDA elementwise
+    kernel rounds every element alike, so on the card fn runs as it is."""
+    if xs[0].device.type != "cpu":
+        return fn(*xs)
+    n = xs[0].shape[-1]
+    pad = (0, -n % 64)
+    return fn(*(F.pad(x, pad) for x in xs))[..., :n]
+
+
 def orientation_angles(img_blur, ys, xs):
-    """Intensity-centroid orientation over a radius-15 disc."""
-    H, W = img_blur.shape
-    dy = torch.from_numpy(_ORI_DY).to(img_blur.device)
-    dx = torch.from_numpy(_ORI_DX).to(img_blur.device)
-    yy = torch.clamp(ys[:, None] + dy[None, :], 0, H - 1)
-    xx = torch.clamp(xs[:, None] + dx[None, :], 0, W - 1)
-    patch = img_blur[yy, xx]
-    m10 = torch.sum(patch * dx[None, :].to(patch.dtype), 1)
-    m01 = torch.sum(patch * dy[None, :].to(patch.dtype), 1)
-    return torch.atan2(m01, m10)
+    """Intensity-centroid orientation over a radius-15 disc; img_blur
+    [B, H, W], keypoint pixels ys, xs [B, M]."""
+    _, H, W = img_blur.shape
+    off = torch.from_numpy(_ORI_OFFSETS).to(img_blur.device)
+    yy = torch.clamp(ys[..., None] + off[0], 0, H - 1)
+    xx = torch.clamp(xs[..., None] + off[1], 0, W - 1)
+    patch = _gather2d(img_blur, yy, xx)
+    # both moments in one pass: [2, B, M, K] products, summed over K
+    m01, m10 = _pairwise_sum(patch * off.to(patch.dtype)[:, None, None])
+    return _per_row(torch.atan2, m01, m10)
 
 
 def pack_bits(bits):
-    """[M, 256] {0,1} -> [M, 8] int32 words (bit i of word w = bit 32 w + i)."""
-    b = bits.to(torch.int64).reshape(bits.shape[0], 8, 32)
+    """[..., 256] {0,1} -> [..., 8] int32 words (bit i of word w = bit
+    32 w + i)."""
+    b = bits.to(torch.int64).reshape(*bits.shape[:-1], 8, 32)
     shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
     words = torch.sum(b << shifts, -1)
     words = words - ((words >> 31) & 1) * (1 << 32)  # uint32 -> int32 bits
@@ -194,33 +246,36 @@ def pack_bits(bits):
 
 
 def brief_descriptors(img_blur, ys, xs, angles):
-    """Rotation-steered BRIEF-256, packed to [M, 8] int32."""
-    H, W = img_blur.shape
+    """Rotation-steered BRIEF-256 of keypoints ys, xs, angles [B, M] in
+    img_blur [B, H, W], packed to [B, M, 8] int32."""
+    _, H, W = img_blur.shape
     pat = torch.from_numpy(_BRIEF).to(img_blur.device)
-    ca, sa = torch.cos(angles), torch.sin(angles)
+    ca = _per_row(torch.cos, angles)[..., None]
+    sa = _per_row(torch.sin, angles)[..., None]
 
     def rot(px, py):
-        return (ca[:, None] * px[None] - sa[:, None] * py[None],
-                sa[:, None] * px[None] + ca[:, None] * py[None])
+        return ca * px - sa * py, sa * px + ca * py
 
     r1x, r1y = rot(pat[:, 0], pat[:, 1])
     r2x, r2y = rot(pat[:, 2], pat[:, 3])
-    xf, yf = xs[:, None].to(torch.float32), ys[:, None].to(torch.float32)
+    xf, yf = xs[..., None].to(torch.float32), ys[..., None].to(torch.float32)
     x1 = torch.clamp(torch.round(xf + r1x).to(torch.int64), 0, W - 1)
     y1 = torch.clamp(torch.round(yf + r1y).to(torch.int64), 0, H - 1)
     x2 = torch.clamp(torch.round(xf + r2x).to(torch.int64), 0, W - 1)
     y2 = torch.clamp(torch.round(yf + r2y).to(torch.int64), 0, H - 1)
-    return pack_bits(img_blur[y1, x1] < img_blur[y2, x2])
+    return pack_bits(_gather2d(img_blur, y1, x1) < _gather2d(img_blur, y2, x2))
 
 
 def _top_k(flat, n):
-    """Exact top-n, equal values ranked lowest index first."""
-    vals, idx = torch.sort(flat, descending=True, stable=True)
-    return vals[:n], idx[:n]
+    """Exact top-n of each row of [B, N], equal values ranked lowest index
+    first."""
+    vals, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
+    return vals[:, :n], idx[:, :n]
 
 
 def _detect_level(img, n_keep, cfg: FeatureConfig):
-    H, W = img.shape
+    """Detect the n_keep best keypoints of each frame of img [B, H, W]."""
+    B, H, W = img.shape
     harris, shi = harris_response(img, cfg.harris_k)
     ninf = torch.full_like(harris, -float("inf"))
     if cfg.detector == "fast_harris":
@@ -234,10 +289,10 @@ def _detect_level(img, n_keep, cfg: FeatureConfig):
     score = torch.where(_nms3(score), score, ninf)
     b = cfg.border
     inb = torch.zeros_like(score, dtype=torch.bool)
-    inb[b:H - b, b:W - b] = True
+    inb[:, b:H - b, b:W - b] = True
     score = torch.where(inb, score, ninf)
 
-    vals, idx = _top_k(score.reshape(-1), n_keep)
+    vals, idx = _top_k(score.reshape(B, H * W), n_keep)
     ys = idx // W
     xs = idx % W
     valid = torch.isfinite(vals) & (vals > 0)
@@ -248,11 +303,13 @@ def _detect_level(img, n_keep, cfg: FeatureConfig):
     yp = torch.clamp(ys + 1, 0, H - 1)
     xm = torch.clamp(xs - 1, 0, W - 1)
     xp = torch.clamp(xs + 1, 0, W - 1)
-    c = resp[ys, xs]
-    dxn = resp[ys, xp] - resp[ys, xm]
-    dxd = 2.0 * (2.0 * c - resp[ys, xp] - resp[ys, xm])
-    dyn = resp[yp, xs] - resp[ym, xs]
-    dyd = 2.0 * (2.0 * c - resp[yp, xs] - resp[ym, xs])
+    c, r_xp, r_xm, r_yp, r_ym = _gather2d(
+        resp, torch.stack([ys, ys, ys, yp, ym], 1),
+        torch.stack([xs, xp, xm, xs, xs], 1)).unbind(1)
+    dxn = r_xp - r_xm
+    dxd = 2.0 * (2.0 * c - r_xp - r_xm)
+    dyn = r_yp - r_ym
+    dyd = 2.0 * (2.0 * c - r_yp - r_ym)
     tiny = lambda d: torch.where(torch.abs(d) < 1e-12, torch.full_like(d, 1e-12), d)
     off_x = torch.clamp(dxn / tiny(dxd), -0.5, 0.5)
     off_y = torch.clamp(dyn / tiny(dyd), -0.5, 0.5)
@@ -274,30 +331,38 @@ def level_allocations(cfg: FeatureConfig):
     return [max(int(a), 8) for a in alloc]
 
 
-def detect_and_describe(image, cfg: FeatureConfig = FeatureConfig()):
-    """Full pyramid detection on one grayscale image [H, W] in [0, 1]
-    (float32 tensor on the device to run on). Returns `Features` with
-    M = sum of per-level allocations, xy in level-0 pixels."""
-    H, W = image.shape
+def detect_batch(images, cfg: FeatureConfig = FeatureConfig()):
+    """Full pyramid detection on a batch of grayscale frames [B, H, W] in
+    [0, 1] (float32 tensor on the device to run on), in one pass over the
+    batch. Returns `Features` with leading axis B and M = sum of per-level
+    allocations keypoints a frame, xy in level-0 pixels."""
+    B, H, W = images.shape
     allocs = level_allocations(cfg)
     outs = []
-    img_l = image
+    img_l = images
     for lvl in range(cfg.n_levels):
         scale = cfg.scale_factor**lvl
         if lvl > 0:
             h_l = max(int(round(H / scale)), 2 * cfg.border + 8)
             w_l = max(int(round(W / scale)), 2 * cfg.border + 8)
-            img_l = _resize_linear(image, h_l, w_l)
+            img_l = _resize_linear(images, h_l, w_l)
         ys, xs, resp, ang, desc, valid = _detect_level(img_l, allocs[lvl], cfg)
         n = allocs[lvl]
         outs.append((
             torch.stack([xs, ys], -1) * scale, resp,
-            torch.full((n,), lvl, dtype=torch.int32, device=image.device), ang,
-            torch.full((n,), scale * scale, dtype=torch.float32,
-                       device=image.device),
+            torch.full((B, n), lvl, dtype=torch.int32, device=images.device), ang,
+            torch.full((B, n), scale * scale, dtype=torch.float32,
+                       device=images.device),
             desc, valid))
-    cat = [torch.cat([o[i] for o in outs]) for i in range(7)]
+    cat = [torch.cat([o[i] for o in outs], 1) for i in range(7)]
     xy, resp, octv, ang, sig, desc, valid = cat
     resp = torch.where(valid, resp, torch.full_like(resp, -float("inf")))
     return Features(xy=xy, response=resp, octave=octv, angle=ang, sigma2=sig,
                     desc=desc, valid=valid)
+
+
+def detect_and_describe(image, cfg: FeatureConfig = FeatureConfig()):
+    """Detection on one grayscale image [H, W]: `detect_batch` of a batch of
+    one. Returns `Features` without the batch axis."""
+    f = detect_batch(image[None], cfg)
+    return Features(*(getattr(f, k)[0] for k in Features.__dataclass_fields__))

@@ -1,11 +1,10 @@
 """Distributed solvers on torch.distributed (port of `bundleadjustment_tpu.parallel`).
 
-Exports what the reference's `parallel/__init__.py` does, as far as it is
-ported: the flat landmark-sharded engine. The reference's
-`detect_batch_sharded` (`parallel/frontend.py`) is not ported yet (ROADMAP
-queue 1, item 10).
+Exports what the reference's `parallel/__init__.py` does: the flat
+landmark-sharded engine and the data-parallel frontend.
 """
 
+from bundleadjustment_tpu_torch.parallel.frontend import detect_batch_sharded
 from bundleadjustment_tpu_torch.parallel.sharded_ba import (
     ShardedBAProblem,
     shard_problem,
@@ -14,6 +13,7 @@ from bundleadjustment_tpu_torch.parallel.sharded_ba import (
 
 __all__ = [
     "ShardedBAProblem",
+    "detect_batch_sharded",
     "shard_problem",
     "sharded_ba_solve",
 ]

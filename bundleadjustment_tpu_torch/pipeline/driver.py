@@ -21,7 +21,8 @@ with PCG).
 
 Differences from the JAX driver:
 
-- tracking runs one frame at a time; `track_batch`, `fused_tracking` and
+- tracking runs one frame at a time (`process_frames` has the per-frame
+  and the predetect branches, not the microbatch); `track_batch` and
   `matcher` are accepted and ignored. The JAX CLI's default is the
   `process_frames` microbatch (`track_batch = 8`), whose guided local-map
   pass matches against a landmark snapshot frozen at the start of each
@@ -248,16 +249,17 @@ class BundleAdjustmentPipeline:
             return self._features(detect_and_describe(self._gray(gray),
                                                       self.feat_cfg))
 
-    def _match_prev(self, f, prev: FrameFeatures):
+    def _match_prev(self, desc, valid, prev: FrameFeatures):
+        """Match prev -> the current frame's device descriptors (kernel A)."""
         desc_p, valid_p = self._dev_desc(prev)
-        return match_descriptors_fused(desc_p, f.desc, valid_a=valid_p,
-                                       valid_b=f.valid, ratio=self.cfg.match_ratio)
+        return match_descriptors_fused(desc_p, desc, valid_a=valid_p,
+                                       valid_b=valid, ratio=self.cfg.match_ratio)
 
     def detect_and_match(self, gray, prev: FrameFeatures):
         """Detect the current frame and match prev -> current."""
         with self.timers.phase("frontend"):
             f = detect_and_describe(self._gray(gray), self.feat_cfg)
-            idx, dist = self._match_prev(f, prev)
+            idx, dist = self._match_prev(f.desc, f.valid, prev)
             return self._features(f), idx.cpu().numpy(), dist.cpu().numpy()
 
     def _track_fused(self, gray, prev: FrameFeatures, pred_extr):
@@ -268,7 +270,7 @@ class BundleAdjustmentPipeline:
         with self.timers.phase("frontend"):
             xyz, okm, _ids = self._prev_track
             f = detect_and_describe(self._gray(gray), self.feat_cfg)
-            idx, dist = self._match_prev(f, prev)
+            idx, dist = self._match_prev(f.desc, f.valid, prev)
             safe = torch.clamp(idx, min=0).long()
             ok = (idx >= 0) & self._t(okm) & (dist < cfg.assoc_max_dist)
             ok = ok & (torch.cumsum(ok.to(torch.int64), 0) <= cfg.max_track_obs)
@@ -286,7 +288,13 @@ class BundleAdjustmentPipeline:
 
     def _capture_track_state(self, slot, feats):
         """Per-keypoint landmark state of the new last frame for the next
-        frame's association: positions, the >= 2-observation mask, ids."""
+        frame's association: positions, the >= 2-observation mask, ids.
+        None unless the fused step tracks the next frame (`fused_tracking`
+        and estimation "ba" or "pnp"): else it takes the split path."""
+        if not (self.cfg.fused_tracking
+                and self.cfg.estimation in ("ba", "pnp")):
+            self._prev_track = None
+            return
         m = self.map
         M = len(feats.desc)
         kp_pt = m.kp_pt[slot, :M].astype(np.int64)
@@ -1040,13 +1048,76 @@ class BundleAdjustmentPipeline:
         # the recovered pose: ungated writes poison the map
         return extr, self._reproj_gate(extr, assoc_pt, assoc_kp, cur_feats)
 
-    def process_frame(self, frame):
-        """Process one FrameData. Returns a status string."""
+    def predetect_features(self, frames, group=None, chunk=32):
+        """Data-parallel frame frontend: detect every frame up front, `chunk`
+        frames a pass, the frame axis dealt over the ranks of `group` when
+        given (`parallel/frontend.py`). The tracking loop consumes the result
+        through `process_frames(..., prefeats=...)`. Returns one
+        FrameFeatures a frame: host arrays, and the descriptors and validity
+        also on the device (`desc_dev`, `valid_dev`), so matching uploads
+        nothing."""
+        from bundleadjustment_tpu_torch.parallel.frontend import detect_batch_sharded
+
+        out = []
+        grays = [np.asarray(f.gray, np.float32) for f in frames]
+        for s in range(0, len(grays), chunk):
+            block = np.stack(grays[s:s + chunk])
+            with self.timers.phase("detect"):
+                f = detect_batch_sharded(block, self.feat_cfg, group=group,
+                                         device=self.device)
+                xy, octave, sigma2, desc, valid = (
+                    t.cpu().numpy() for t in (f.xy, f.octave, f.sigma2, f.desc,
+                                              f.valid))
+            for k in range(block.shape[0]):
+                out.append(FrameFeatures(
+                    xy=xy[k], octave=octave[k], sigma2=sigma2[k],
+                    desc=desc[k].view(np.uint32), valid=valid[k],
+                    desc_dev=f.desc[k], valid_dev=f.valid[k]))
+        return out
+
+    def process_frames(self, frames, timings=None, max_frames=None,
+                       prefeats=None):
+        """Process an iterable of FrameData one frame at a time, stopping
+        after "tracking-lost"; `prefeats` (from `predetect_features`) gives
+        each frame's features, so its tracking only matches and estimates
+        (the split path). Returns the per-frame statuses; `timings`, if
+        given, receives each frame's wall time. (The JAX package's
+        microbatch branch, `track_batch > 1`, is not ported; `max_frames`,
+        which only that branch's callers set, is kept so that the signature
+        matches the JAX package's.)"""
+        import time
+
+        statuses = []
+        pfs = iter(prefeats) if prefeats is not None else None
+        for f in frames:
+            if max_frames is not None and len(statuses) >= max_frames:
+                break
+            t0 = time.perf_counter()
+            s = self.process_frame(f, prefeats=None if pfs is None else next(pfs))
+            if timings is not None:
+                timings.append(time.perf_counter() - t0)
+            statuses.append(s)
+            if s == "tracking-lost":
+                break
+        return statuses
+
+    def process_frame(self, frame, prefeats=None):
+        """Process one FrameData. Returns a status string. `prefeats` (from
+        `predetect_features`) carries the frame's features: it is matched
+        against the previous frame through kernel A and tracked by the split
+        path."""
         cfg = self.cfg
         m = self.map
         prev = self.last_feats if self.initialized else self.ref_feats
         fused_rt = fused_inl = assoc_ok = pred_extr = None
-        if (self.initialized and cfg.estimation in ("ba", "pnp")
+        if prefeats is not None:
+            feats = prefeats
+            matches = dists = None
+            if prev is not None:
+                with self.timers.phase("frontend"):
+                    idx, dist = self._match_prev(*self._dev_desc(feats), prev)
+                    matches, dists = idx.cpu().numpy(), dist.cpu().numpy()
+        elif (self.initialized and cfg.estimation in ("ba", "pnp")
                 and self._prev_track is not None):
             pred_extr = self._predict_extr()
             feats, matches, dists, assoc_ok, fused_rt, fused_inl = (
@@ -1421,18 +1492,34 @@ class BundleAdjustmentPipeline:
         ids = self.map.active_points()
         return self.map.pt_pos[ids].copy(), self.map.pt_color[ids].copy()
 
-    def run(self, dataset):
+    def run(self, dataset, predetect=False, group=None):
         """Track every frame of `dataset` (up to cfg.max_frames), stopping at
-        tracking loss, then finalize. Returns the stats dict."""
-        for i, frame in enumerate(dataset):
-            if i >= self.cfg.max_frames:
-                break
-            status = self.process_frame(frame)
+        tracking loss, then finalize. Returns the stats dict.
+
+        predetect=True: detect every frame first with the data-parallel
+        batched frontend (the frame axis over the ranks of `group` when
+        given), then track each frame by matching and estimation only."""
+        if predetect:
+            frames = []
+            for i, frame in enumerate(dataset):
+                if i >= self.cfg.max_frames:
+                    break
+                frames.append(frame)
+            pf = self.predetect_features(frames, group=group)
+            statuses = self.process_frames(frames, prefeats=pf)
             if self.cfg.verbose:
-                print(f"[{i:4d}] {status}  kfs={self.stats['keyframes']} "
-                      f"pts={len(self.map.active_points())}")
-            if status == "tracking-lost":
-                break
+                for i, status in enumerate(statuses):
+                    print(f"[{i:4d}] {status}")
+        else:
+            for i, frame in enumerate(dataset):
+                if i >= self.cfg.max_frames:
+                    break
+                status = self.process_frame(frame)
+                if self.cfg.verbose:
+                    print(f"[{i:4d}] {status}  kfs={self.stats['keyframes']} "
+                          f"pts={len(self.map.active_points())}")
+                if status == "tracking-lost":
+                    break
         self.finalize()
         self.stats["phase_times"] = self.timers.report()
         return self.stats

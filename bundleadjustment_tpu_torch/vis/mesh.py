@@ -9,10 +9,9 @@ projection (scipy) — the moral equivalent of PCL greedy projection
 triangulation (`:345-412`) without a native PCL dependency; "none" writes
 vertices only.
 
-Copied from `bundleadjustment_tpu/vis/mesh.py` (numpy only; the JAX
-package's `vis/__init__.py` imports jax). One change: `faces_type="poisson"`
-raises NotImplementedError, because the Poisson solver (`vis/poisson.py`)
-is not ported yet.
+Copied from `bundleadjustment_tpu/vis/mesh.py` (numpy only). One change:
+`create_map_mesh` takes a `device` and passes it on to the Poisson solver
+(`vis/poisson.py`), which runs there.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ def camera_frustum_glyph(cam_to_world, scale=0.02, color=(255, 0, 0)):
 
 
 def create_map_mesh(points, colors=None, cam_poses=None, faces_type="standard",
-                    normalize=True):
+                    normalize=True, device="cuda"):
     """Assemble the output mesh: map vertices (+faces) + camera glyphs.
 
     faces_type: "standard" (no faces) | "greedy" (Delaunay projection faces
@@ -71,13 +70,35 @@ def create_map_mesh(points, colors=None, cam_poses=None, faces_type="standard",
     else:
         center, scale = np.zeros(3), 1.0
 
-    if faces_type == "poisson":
-        raise NotImplementedError(
-            "faces_type='poisson' is not ported yet (ROADMAP queue 1: "
-            "vis/poisson.py)")
     faces = np.zeros((0, 3), np.int64)
-    if faces_type == "greedy" and len(pts) >= 16:
-        # Delaunay projection faces
+    poisson_ok = False
+    if faces_type == "poisson" and len(pts) >= 64:
+        from bundleadjustment_tpu_torch.vis.poisson import poisson_reconstruct
+
+        vps = None
+        if cam_poses is not None and len(cam_poses):
+            vps = np.stack(
+                [(np.asarray(M)[:3, 3] - center) * scale for M in cam_poses]
+            )
+        mverts, mfaces = poisson_reconstruct(pts, viewpoints=vps, device=device)
+        poisson_ok = len(mverts) > 0 and len(mfaces) > 0
+        if poisson_ok:
+            # color mesh vertices from the nearest map point (chunked NN)
+            cols_in = np.asarray(colors, np.uint8)
+            p32 = pts.astype(np.float32)
+            pn = (p32 ** 2).sum(1)
+            nn = np.empty(len(mverts), np.int64)
+            for s in range(0, len(mverts), 1024):
+                blk = mverts[s:s + 1024].astype(np.float32)
+                d = (blk ** 2).sum(1)[:, None] - 2.0 * blk @ p32.T + pn[None]
+                nn[s:s + len(blk)] = np.argmin(d, axis=1)
+            pts = mverts
+            colors = cols_in[nn]
+            faces = mfaces
+    if (faces_type == "greedy" or (faces_type == "poisson" and not poisson_ok)
+            ) and len(pts) >= 16:
+        # Delaunay projection faces; also the fallback when the point set is
+        # too small/degenerate for a Poisson iso-surface
         from scipy.spatial import Delaunay
 
         # project onto the two principal axes, triangulate, lift

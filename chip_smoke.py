@@ -90,13 +90,41 @@ script exits non-zero without printing the final line:
    JAX package's TPU record's counts, the launches of A, B, C and D, the
    seconds spent seeding, and kernel C against route (c) on its final
    system;
-15. per-path launch check: every kernel was launched by the run of the path
+15. predetect pipeline: the 40-frame sequence through the CLI with
+   `--predetect` (detection of 32 frames a pass, then matching and
+   estimation a frame): ATE < 0.05 m, frames/s beside phase 8's; then
+   detection ms a frame batched (B = 32) against per-frame
+   `detect_and_describe` (CUDA events), and over the 40 frames how many
+   keypoints differ between batched and per-frame detection on the card
+   (validity, descriptor, largest |xy| difference);
+16. output pipeline: the same sequence through the CLI with
+   `--reconstruction-error GT --faces-type poisson --display-pointcloud`,
+   the ground-truth cloud being the port's `backproject_depth` of every 4th
+   rendered frame at stride 2 in world coordinates: reconstruction error <
+   0.05, the three comparison PLYs, `<prefix>_cloud.ply` and
+   `map_final.ply` written, Poisson faces in the mesh;
+17. checkpoint / resume: the default configuration on that sequence for
+   20 frames, `save_checkpoint`, `load_checkpoint` onto the card, the other
+   20 frames and `finalize`: every frame tracked, ATE < 0.05 m and within
+   max(0.6 ATE, 0.01 m) of phase 8's; then a depth-seeded run (the
+   config-7 settings, 6 frames) keeps its pending seeds across a
+   save / load;
+18. outputs at scale: `icp_align` of a 10k-point map onto a 100k-point
+   cloud (30 iterations) and `poisson_reconstruct` of 100k back-projected
+   points at grid 96 and 128: ms (host clock around synchronised calls),
+   peak `torch.cuda.max_memory_allocated`, the least time of their
+   nearest-neighbour search (a fused distance-argmin: the larger of the
+   points' bytes over 3.35 TB/s and 9 operations a pair over 67 TFLOP/s)
+   and, beside it, one write of their materialised distance blocks over
+   3.35 TB/s;
+19. per-path launch check: every kernel was launched by the run of the path
    that carries it (A, B, B with back-substitution and C: phase 8; K5:
    phase 9, whose local BAs also launch B and C; D: phase 5; E: phase 6, at
    least 10 times; A in every monocular run, B and C in the dense standard
    run; B in the dense PCG solve; A and B in the PCG pipeline and the
-   depth-seeded run; A in the windowed run). Each count is reset just
-   before that run and read just after it.
+   depth-seeded run; A in the windowed run; A, B and C in the predetect and
+   output runs). Each count is reset just before that run and read just
+   after it.
 
 Then a `{"kernels": [...]}` line and, last, `{"ok": true, "device": ...}`.
 Needs one CUDA device; exits non-zero without one.
@@ -147,13 +175,19 @@ ALSO_LAUNCHED = {"pipeline_sharded": _DENSE,
                  "pipeline_depth_seeded": ("hamming_top2", "dense_eval_assemble"),
                  "pipeline_essential_or_homography": ("hamming_top2",),
                  "pipeline_standard": ("hamming_top2",),
-                 "pipeline_standard_dense": ("hamming_top2", *_DENSE)}
+                 "pipeline_standard_dense": ("hamming_top2", *_DENSE),
+                 "pipeline_predetect": ("hamming_top2", *_DENSE),
+                 "pipeline_outputs": ("hamming_top2", *_DENSE)}
 # the least number of launches a path's run must show (default 1)
 MIN_LAUNCHES = {"chol_solve": 10}
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # float32 outside the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+# float32 operations of one (point, point) pair of a nearest-neighbour
+# search: the 3-term dot product (3 products, 2 sums), the two squared norms
+# added, the -2 scale and one compare
+NN_PAIR_OPS = 9
 RTOL, ATOL = 2e-4, 2e-3  # block outputs (the kernels sum in other orders)
 COST_RTOL = 1e-5
 
@@ -1352,7 +1386,7 @@ ATE_STANDARD_BOUND_M = 0.075
 
 def write_sequence(root, n_frames, **render):
     """Render a sequence (default: the config-1-shaped one) and write it in
-    TUM format with an intrinsics.json sidecar."""
+    TUM format with an intrinsics.json sidecar. Returns (frames, K4)."""
     from bundleadjustment_tpu_torch.data.synthetic import (
         render_layered_scene,
         write_tum_format,
@@ -1366,33 +1400,48 @@ def write_sequence(root, n_frames, **render):
     with open(os.path.join(root, "intrinsics.json"), "w") as f:
         json.dump({"fx": float(K4[0]), "fy": float(K4[1]), "cx": float(K4[2]),
                    "cy": float(K4[3]), "width": 640, "height": 480}, f)
+    return frames, K4
+
+
+def pipeline_argv(data, out, n_frames, device, flags=()):
+    """The smoke's CLI arguments: the default configuration with local BA."""
+    return ["--dataset-name", "synthetic", "--dataset-path", data,
+            "--output-path", out, "--frames", str(n_frames), "--local-ba",
+            "--trajectory", "--device", str(device), *flags]
+
+
+def sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def phase_pipeline(device, data, n_frames, phase="pipeline", flags=(),
-                   name="gtdepth_ba", ate_bound=0.05):
+                   name="gtdepth_ba", ate_bound=0.05, outputs=None):
     """Run the port's CLI end to end on the sequence in `data`; returns
-    (pipeline, results, launch counts of this run). `name` is the init type
-    and estimation in the output prefix; every frame must be tracked and
-    the ATE (Horn with scale) stay under `ate_bound`."""
-    import torch
-
+    (pipeline, results with "wall_s", launch counts of this run). `name` is
+    the init type and estimation in the output prefix; every frame must be
+    tracked and the ATE (Horn with scale) stay under `ate_bound`.
+    `outputs(out_dir, prefix, results)`, if given, checks the run's further
+    output files before they are deleted and returns what to print."""
     from bundleadjustment_tpu_torch import cli, kernels
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out")
-        argv = ["--dataset-name", "synthetic", "--dataset-path", data,
-                "--output-path", out, "--frames", str(n_frames), "--local-ba",
-                "--trajectory", "--device", str(device), *flags]
-        torch.cuda.synchronize()
+        argv = pipeline_argv(data, out, n_frames, device, flags)
+        sync(device)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         pipe, res = cli.run_cli(argv)
-        torch.cuda.synchronize()
+        sync(device)
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
         prefix = os.path.join(out, f"synthetic_{name}_localba_f{n_frames}")
         outputs_exist = [os.path.exists(prefix + s) for s in
                          ("_estimatedPoses.txt", "_mesh.off", "_results.json")]
+        extra = {} if outputs is None else outputs(out, prefix, res)
+    res = dict(res, wall_s=wall)
     emit({"phase": phase, "flags": list(flags), "frames": res["frames"],
           "ate_rmse_m": res.get("ate_rmse"), "keyframes": res["keyframes"],
           "keyframes_final": res["n_keyframes_final"],
@@ -1402,7 +1451,8 @@ def phase_pipeline(device, data, n_frames, phase="pipeline", flags=(),
           "ate_scale": res.get("ate_scale"), "ate_bound_m": ate_bound,
           "ba_engines": sorted(set(e for _, e in pipe.ba_solves)),
           "ba_first_two": pipe.ba_solves[:2], "ba_last": pipe.ba_solves[-1:],
-          "phase_times": res["phase_times"], "outputs_exist": outputs_exist})
+          "phase_times": res["phase_times"], "outputs_exist": outputs_exist,
+          **extra})
     if not (res.get("ate_rmse") is not None and res["ate_rmse"] < ate_bound):
         raise AssertionError(f"{phase} ATE {res.get('ate_rmse')} >= {ate_bound} m")
     if res["frames"] != n_frames or res["tracking_failures"] or not pipe.initialized:
@@ -1603,6 +1653,254 @@ def phase_pipeline_depth_seeded(device, n_frames=CONFIG7_FRAMES):
     return counts
 
 
+def phase_pipeline_predetect(device, data, frames, n_frames, res_default, runs):
+    """The CLI with --predetect (32 frames a detection pass); then detection
+    ms a frame, batched (B = 32) against per-frame, and how far batched and
+    per-frame detection differ on the card over every frame."""
+    import numpy as np
+    import torch
+
+    from bundleadjustment_tpu_torch.ops.features import detect_and_describe, detect_batch
+
+    pipe, res, runs["pipeline_predetect"] = phase_pipeline(
+        device, data, n_frames, "pipeline_predetect", ("--predetect",))
+    cfg = pipe.feat_cfg
+    imgs = torch.from_numpy(np.stack([f["gray"] for f in frames]).astype(np.float32))
+    imgs = imgs.to(device)
+    B = min(32, len(frames))
+    batched_ms = cuda_time(lambda: detect_batch(imgs[:B], cfg), reps=3, warmup=1) / B
+    single_ms = cuda_time(lambda: [detect_and_describe(imgs[i], cfg) for i in range(B)],
+                          reps=3, warmup=1) / B
+    valid_diff = desc_diff = 0
+    xy_diff = 0.0
+    for s in range(0, len(frames), 32):
+        batch = detect_batch(imgs[s:s + 32], cfg)
+        for i in range(batch.xy.shape[0]):
+            one = detect_and_describe(imgs[s + i], cfg)
+            both = batch.valid[i] & one.valid
+            valid_diff += int((batch.valid[i] != one.valid).sum())
+            desc_diff += int((batch.desc[i] != one.desc).any(1)[both].sum())
+            if bool(both.any()):
+                xy_diff = max(xy_diff, float((batch.xy[i] - one.xy).abs()[both].max()))
+    emit({"phase": "predetect_detection", "batch": B, "frames": len(frames),
+          "batched_ms_per_frame": batched_ms, "per_frame_ms": single_ms,
+          "keypoints_per_frame": int(batch.valid.shape[1]),
+          "valid_differ": valid_diff, "desc_differ": desc_diff,
+          "max_abs_xy_diff_px": xy_diff,
+          "frames_per_s": res["frames"] / res["wall_s"],
+          "frames_per_s_default": res_default["frames"] / res_default["wall_s"],
+          "ate_rmse_m": res["ate_rmse"], "ate_default_m": res_default["ate_rmse"],
+          "keyframes": res["keyframes"], "keyframes_default": res_default["keyframes"]})
+
+
+def ply_faces(path):
+    """Face count in the header of an OFF file."""
+    with open(path) as f:
+        f.readline()
+        return int(f.readline().split()[1])
+
+
+def gt_cloud(frames, K4, device, every=4, stride=2):
+    """World-frame ground-truth cloud: `backproject_depth` of every
+    `every`-th frame at `stride`, valid pixels only."""
+    import numpy as np
+
+    from bundleadjustment_tpu_torch.vis.pointcloud import backproject_depth
+
+    parts = []
+    for f in frames[::every]:
+        pts, ok = backproject_depth(K4, f["depth"], f["gt_cam_to_world"],
+                                    stride=stride, device=device)
+        parts.append(pts[ok])
+    return np.concatenate(parts)
+
+
+def phase_pipeline_outputs(device, data, frames, K4, n_frames, tmp, runs):
+    """The CLI with --reconstruction-error, --faces-type poisson and
+    --display-pointcloud on the sequence; checks the error, the PLYs and the
+    Poisson faces."""
+    from bundleadjustment_tpu_torch.vis.mesh import read_ply_vertices, write_ply
+
+    gt = gt_cloud(frames, K4, device)
+    gt_path = os.path.join(tmp, "gt_cloud.ply")
+    write_ply(gt_path, gt)
+
+    checked = {}
+
+    def outputs(out, prefix, res):
+        plys = {s: os.path.exists(f"{prefix}_{s}.ply") for s in
+                ("gt_cloud", "estimated_cloud", "combined_colored_cloud", "cloud")}
+        cloud = (len(read_ply_vertices(prefix + "_cloud.ply")) if plys["cloud"]
+                 else None)
+        checked.update({
+            "gt_points": len(gt), "plys": plys,
+            "map_final": os.path.exists(os.path.join(out, "map_final.ply")),
+            "mesh_faces": ply_faces(prefix + "_mesh.off"),
+            "glyph_faces": 4 * res["n_keyframes_final"], "cloud_points": cloud,
+            "reconstruction_error": res.get("reconstruction_error")})
+        return checked
+
+    _, res, runs["pipeline_outputs"] = phase_pipeline(
+        device, data, n_frames, "pipeline_outputs",
+        ("--reconstruction-error", gt_path, "--faces-type", "poisson",
+         "--display-pointcloud"), outputs=outputs)
+    err = checked["reconstruction_error"]
+    if not (err is not None and 0 <= err < 0.05):
+        raise AssertionError(f"reconstruction error {err} (bound 0.05)")
+    if not (all(checked["plys"].values()) and checked["map_final"]
+            and checked["cloud_points"] == res["n_map_points"]):
+        raise AssertionError(f"output files missing: {checked}")
+    if not checked["mesh_faces"] > checked["glyph_faces"]:
+        raise AssertionError(f"the mesh has no Poisson faces: {checked}")
+
+
+def run_frames(pipe, frames):
+    return [pipe.process_frame(f) for f in frames]
+
+
+def phase_checkpoint_resume(device, data, n_frames, res_default, tmp, cut=20):
+    """The default configuration on the sequence, cut after `cut` frames:
+    save, load onto the card, finish, finalize; every frame tracked, ATE <
+    0.05 m and within max(0.6 ATE, 0.01 m) of phase 8's run. Then the
+    config-7 depth-seeded settings for 6 frames keep their pending seeds
+    across a save / load."""
+    import numpy as np
+
+    from bundleadjustment_tpu_torch import cli
+    from bundleadjustment_tpu_torch.data.synthetic import render_layered_scene
+    from bundleadjustment_tpu_torch.data.tum import FrameData
+    from bundleadjustment_tpu_torch.metrics.ate import evaluate_ate
+    from bundleadjustment_tpu_torch.pipeline.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from bundleadjustment_tpu_torch.pipeline.config import PipelineConfig
+    from bundleadjustment_tpu_torch.pipeline.driver import BundleAdjustmentPipeline
+
+    args = cli.build_parser().parse_args(
+        pipeline_argv(data, os.path.join(tmp, "ckpt_out"), n_frames, device))
+    cfg = cli.config_from_args(args)
+    ds = cli.load_dataset(args)
+    frames = [ds[i] for i in range(len(ds))]
+    t0 = time.perf_counter()
+    pipe = BundleAdjustmentPipeline(cfg, ds.K4, ds.width, ds.height, device=device)
+    statuses = run_frames(pipe, frames[:cut])
+    path = os.path.join(tmp, "state.npz")
+    t1 = time.perf_counter()
+    save_checkpoint(path, pipe)
+    t2 = time.perf_counter()
+    pipe = load_checkpoint(path, cfg, device=device)
+    t3 = time.perf_counter()
+    statuses += run_frames(pipe, frames[cut:])
+    pipe.finalize()
+    sync(device)
+    wall = time.perf_counter() - t0
+    ts, mats = pipe.trajectory_cam_to_world()
+    gt_ts = np.array([f.timestamp for f in frames])
+    gt_xyz = np.array([f.gt_cam_to_world[:3, 3] for f in frames])
+    ate = evaluate_ate(ts, mats[:, :3, 3], gt_ts, gt_xyz, max_difference=0.05)["rmse"]
+    ate0 = res_default["ate_rmse"]
+    # the depth-seeded variant: the config-7 settings on their own scene
+    seeded, _ = render_layered_scene(n_frames=6, **CONFIG7_RENDER)
+    K4 = np.array([525.0, 525.0, (640 - 1) / 2.0, (480 - 1) / 2.0], np.float32)
+    fd = [FrameData(index=i, timestamp=f["timestamp"], gray=f["gray"],
+                    depth=f["depth"], rgb=None, gt_cam_to_world=f["gt_cam_to_world"])
+          for i, f in enumerate(seeded)]
+    cfg7 = PipelineConfig(**CONFIG7_PIPELINE)
+    p7 = BundleAdjustmentPipeline(cfg7, K4, 640, 480, device=device)
+    s7 = run_frames(p7, fd[:4])
+    save_checkpoint(os.path.join(tmp, "seeded.npz"), p7)
+    r7 = load_checkpoint(os.path.join(tmp, "seeded.npz"), cfg7, device=device)
+    kept = r7._pending_seeds == p7._pending_seeds
+    s7 += run_frames(r7, fd[4:])
+    emit({"phase": "checkpoint_resume", "cut": cut, "frames": len(statuses),
+          "statuses": {k: statuses.count(k) for k in sorted(set(statuses))},
+          "ate_rmse_m": ate, "ate_default_m": ate0,
+          "ate_abs_diff_m": abs(ate - ate0), "bound_m": max(0.6 * ate0, 0.01),
+          "wall_s": wall, "save_s": t2 - t1, "load_s": t3 - t2,
+          "file_bytes": os.path.getsize(path), "resumed_on": str(pipe.device),
+          "seeded_statuses": s7, "pending_seeds_saved": len(p7._pending_seeds),
+          "pending_seeds_kept": kept})
+    lost = [s for s in statuses[2:] if s not in ("tracked", "keyframe")]
+    if len(statuses) != n_frames or lost or not pipe.initialized:
+        raise AssertionError(f"checkpoint resume: not every frame tracked: {statuses}")
+    if not (ate < 0.05 and abs(ate - ate0) < max(0.6 * ate0, 0.01)):
+        raise AssertionError(f"checkpoint resume: ATE {ate} m against {ate0} m")
+    if not (p7._pending_seeds and kept):
+        raise AssertionError("the pending depth seeds did not survive the resume")
+
+
+def timed_host(fn, reps=3):
+    """(least ms of `reps` calls by the host clock around synchronised
+    calls after one warm-up, peak allocated bytes, the last result)."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best, torch.cuda.max_memory_allocated(), out
+
+
+def phase_outputs_at_scale(device, frames, K4, n_map=10_000, n_cloud=100_000,
+                           grids=(96, 128)):
+    """icp_align of an n_map-point map onto an n_cloud-point cloud and
+    poisson_reconstruct of the cloud at each grid: host ms, peak memory and
+    two bounds. "bound_ms" is the least time of the nearest-neighbour
+    search (`bound`): a fused distance-argmin reads the points once a pass
+    and does NN_PAIR_OPS float32 operations a (point, point) pair.
+    "blocks_bound_ms" is this design's: one write of every materialised
+    distance block over HBM_BYTES_S."""
+    import numpy as np
+
+    from bundleadjustment_tpu_torch.metrics.reconstruction import icp_align
+    from bundleadjustment_tpu_torch.vis.poisson import (
+        estimate_normals,
+        poisson_reconstruct,
+    )
+
+    rng = np.random.default_rng(7)
+    cloud = gt_cloud(frames[:8], K4, device, every=4, stride=2)
+    cloud = cloud[rng.permutation(len(cloud))[:n_cloud]].astype(np.float32)
+    c, s = np.cos(0.02), np.sin(0.02)
+    R0 = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+    src = (cloud[:n_map] @ R0.T + [0.01, -0.005, 0.01]
+           + rng.normal(scale=0.002, size=(n_map, 3))).astype(np.float32)
+    iters = 30
+    ms, peak, icp = timed_host(lambda: icp_align(src, cloud, iters, device=device))
+    passes = iters + 1
+    pairs = passes * len(src) * len(cloud)
+    emit({"phase": "outputs_at_scale", "what": "icp_align", "N": len(src),
+          "M": len(cloud), "iterations": iters, "ms": ms, "peak_bytes": peak,
+          **bound(passes * (len(src) + len(cloud)) * 12, NN_PAIR_OPS * pairs),
+          "blocks_bound_ms": pairs * 4 / HBM_BYTES_S * 1e3,
+          "n_corr": icp["n_corr"], "fitness": icp["fitness"],
+          "rotation_residual": float(np.abs(icp["R"] @ R0 - np.eye(3)).max())})
+    vps = np.stack([f["gt_cam_to_world"][:3, 3] for f in frames[:8:4]])
+    nrm_ms, nrm_peak, _ = timed_host(
+        lambda: estimate_normals(cloud, viewpoints=vps, device=device), reps=1)
+    knn_pairs = len(cloud) * len(cloud)
+    for grid in grids:
+        ms, peak, (verts, faces) = timed_host(
+            lambda: poisson_reconstruct(cloud, viewpoints=vps, grid=grid,
+                                        device=device), reps=2)
+        emit({"phase": "outputs_at_scale", "what": "poisson_reconstruct",
+              "points": len(cloud), "grid": grid, "ms": ms, "peak_bytes": peak,
+              "normals_ms": nrm_ms, "normals_peak_bytes": nrm_peak,
+              **bound(len(cloud) * 12, NN_PAIR_OPS * knn_pairs),
+              "blocks_bound_ms": knn_pairs * 4 / HBM_BYTES_S * 1e3,
+              "verts": len(verts), "faces": len(faces)})
+        if not len(faces):
+            raise AssertionError(f"poisson_reconstruct at grid {grid}: no faces")
+    if not (icp["n_corr"] > 0.9 * len(src) and np.isfinite(icp["fitness"])):
+        raise AssertionError(f"icp_align at scale: {icp['n_corr']} correspondences")
+
+
 def phase_pipeline_shapes(pipe, results):
     """Time the dense-BA kernels at the pipeline's own final global-BA shape
     (every active keyframe, landmarks with >= 2 observations)."""
@@ -1668,12 +1966,16 @@ def main():
     n_frames = 40
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "seq")
-        write_sequence(data, n_frames)
+        frames, K4 = write_sequence(data, n_frames)
         pipe, res, runs["pipeline"] = phase_pipeline(device, data, n_frames)
         runs["pipeline_sharded"] = phase_pipeline_sharded(
             device, data, n_frames, res["ate_rmse"])
         phase_pipeline_monocular(device, data, tmp, runs)
         phase_pipeline_solvers(device, data, n_frames, runs)
+        phase_pipeline_predetect(device, data, frames, n_frames, res, runs)
+        phase_pipeline_outputs(device, data, frames, K4, n_frames, tmp, runs)
+        phase_checkpoint_resume(device, data, n_frames, res, tmp)
+        phase_outputs_at_scale(device, frames, K4)
     runs["pipeline_depth_seeded"] = phase_pipeline_depth_seeded(device)
     check_launches(runs)
     phase_pipeline_shapes(pipe, results)

@@ -17,6 +17,12 @@ cost rtol 1e-5; red, Vu, g_p, W, S, b, red6 and G rtol 2e-4 / atol 2e-3
 relative to the max magnitude of each block
 (`torch_port_helpers.block_scale`); zv, vinv6 and Xt_new elementwise. Dense
 solves: cameras atol 5e-4, final cost rtol 1e-3.
+
+Modules without a kernel, on the card: batched against per-frame detection
+(>= 99% of keypoints identical, their descriptors bit-identical), ICP on
+the card against its CPU run (R and t 1e-4, fitness 1e-4 relative), and a
+checkpoint written and resumed on the card (positions within 2e-3 m of the
+uninterrupted run).
 """
 
 import numpy as np
@@ -587,3 +593,102 @@ def test_dense_solve_with_kernel_e_matches_plain_on_card(cuda_device):
     np.testing.assert_allclose(ck.cpu().numpy(), cp.cpu().numpy(), atol=5e-4)
     np.testing.assert_allclose(float(ik["cost"]), float(ip["cost"]), rtol=1e-3)
     assert float(ik["cost"]) < float(ik["cost0"])
+
+
+def _gray_frames(n, width, height, fx):
+    from bundleadjustment_tpu_torch.data.synthetic import render_plane_sequence
+
+    frames, K4 = render_plane_sequence(n_frames=n, width=width, height=height,
+                                       fx=fx, fy=fx, motion_step=0.06)
+    return frames, K4
+
+
+def test_detect_batch_matches_per_frame_on_card(cuda_device):
+    """The batched detector against per-frame detection on the card, with
+    the JAX parity bounds of tests/test_torch_features.py (the batched
+    pyramid resize may take another cuBLAS algorithm than a single frame's):
+    >= 99% of keypoints identical, their descriptors bit-identical."""
+    from bundleadjustment_tpu_torch.ops import features as tf
+
+    frames, _ = _gray_frames(8, 640, 480, 525.0)
+    imgs = torch.from_numpy(np.stack([f["gray"] for f in frames]).astype(np.float32))
+    imgs = imgs.to(cuda_device)
+    cfg = tf.FeatureConfig(n_features=1000, n_levels=8)
+    batch = tf.detect_batch(imgs, cfg)
+    for i in range(len(frames)):
+        one = tf.detect_and_describe(imgs[i], cfg)
+        same = ((batch.xy[i] - one.xy).abs().amax(1) < 1e-3) & (
+            batch.valid[i] == one.valid) & (batch.octave[i] == one.octave)
+        assert float(same.float().mean()) >= 0.99
+        assert torch.equal(batch.desc[i][same], one.desc[same])
+    assert int(batch.valid.sum()) > 0.5 * batch.valid.numel()
+
+
+def test_icp_on_card_matches_cpu(cuda_device):
+    """`icp_align` on the card against its CPU run on a moved, noisy
+    subset of a bumpy ellipsoid (tests/test_torch_reconstruction.py's
+    scene): n_corr equal, R and t within 1e-4, fitness within 1e-4
+    relative; blocks of 300 source rows."""
+    from bundleadjustment_tpu_torch.metrics.reconstruction import icp_align
+
+    rng = np.random.default_rng(0)
+    v = rng.normal(size=(3000, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    th, ph = np.arccos(v[:, 2]), np.arctan2(v[:, 1], v[:, 0])
+    dst = v * (1.0 + 0.2 * np.sin(3 * th) * np.cos(2 * ph))[:, None] * [1.0, 0.8, 0.6]
+    c, s = np.cos(0.05), np.sin(0.05)
+    R0 = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    src = dst[:2000] @ R0.T + [0.02, -0.015, 0.01] + rng.normal(scale=0.005, size=(2000, 3))
+    src, dst = src.astype(np.float32), dst.astype(np.float32)
+    ref = icp_align(src, dst, chunk=300, device="cpu")
+    got = icp_align(src, dst, chunk=300, device=cuda_device)
+    assert got["n_corr"] == ref["n_corr"] == 2000
+    np.testing.assert_allclose(got["R"], ref["R"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["t"], ref["t"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["fitness"], ref["fitness"], rtol=1e-4)
+
+
+def test_checkpoint_written_on_card_resumes_on_card(cuda_device, tmp_path):
+    """6 frames at 160x120 on the card, cut after 3: saved, loaded onto the
+    card, resumed; against the uninterrupted card run: every frame tracked,
+    positions within 2e-3 m, ATE < 0.06 m (tests/test_checkpoint.py)."""
+    from bundleadjustment_tpu_torch.data.tum import FrameData
+    from bundleadjustment_tpu_torch.metrics.ate import evaluate_ate
+    from bundleadjustment_tpu_torch.pipeline.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from bundleadjustment_tpu_torch.pipeline.config import PipelineConfig
+    from bundleadjustment_tpu_torch.pipeline.driver import BundleAdjustmentPipeline
+
+    frames, K4 = _gray_frames(6, 160, 120, 150.0)
+    ds = [FrameData(index=i, timestamp=f["timestamp"], gray=f["gray"],
+                    depth=f["depth"], rgb=None, gt_cam_to_world=f["gt_cam_to_world"])
+          for i, f in enumerate(frames)]
+    cfg = PipelineConfig(init_type="gtdepth", estimation="ba", n_features=300,
+                         n_levels=3, local_ba=False, final_ba_outer=1,
+                         final_ba_iters=5)
+    gt_ts = np.array([f["timestamp"] for f in frames])
+    gt_xyz = np.array([f["gt_cam_to_world"][:3, 3] for f in frames])
+
+    def finish(pipe):
+        pipe.finalize()
+        ts, mats = pipe.trajectory_cam_to_world()
+        return mats, evaluate_ate(ts, mats[:, :3, 3], gt_ts, gt_xyz)["rmse"]
+
+    straight = BundleAdjustmentPipeline(cfg, K4, 160, 120, device=cuda_device)
+    for f in ds:
+        straight.process_frame(f)
+    cut = BundleAdjustmentPipeline(cfg, K4, 160, 120, device=cuda_device)
+    for f in ds[:3]:
+        cut.process_frame(f)
+    path = str(tmp_path / "card.npz")
+    save_checkpoint(path, cut)
+    resumed = load_checkpoint(path, cfg, device=cuda_device)
+    assert resumed.device == cuda_device and resumed._prev_track is None
+    statuses = [resumed.process_frame(f) for f in ds[3:]]
+    assert all(s in ("tracked", "keyframe") for s in statuses), statuses
+    mats_a, ate_a = finish(straight)
+    mats_c, ate_c = finish(resumed)
+    assert len(mats_c) == 6 and ate_a < 0.06 and ate_c < 0.06, (ate_a, ate_c)
+    assert np.abs(mats_a[:, :3, 3] - mats_c[:, :3, 3]).max() < 2e-3

@@ -33,6 +33,17 @@ import bundleadjustment_tpu_torch.data.synthetic
 import bundleadjustment_tpu_torch.data.replica
 import bundleadjustment_tpu_torch.mapstate.scene
 import bundleadjustment_tpu_torch.metrics.ate
+import bundleadjustment_tpu_torch.metrics
+import bundleadjustment_tpu_torch.metrics.reconstruction
+import bundleadjustment_tpu_torch.pipeline.checkpoint
+import bundleadjustment_tpu_torch.parallel
+import bundleadjustment_tpu_torch.parallel.frontend
+import bundleadjustment_tpu_torch.geometry.projection
+import bundleadjustment_tpu_torch.vis
+import bundleadjustment_tpu_torch.vis.pointcloud
+import bundleadjustment_tpu_torch.vis.poisson
+import bundleadjustment_tpu_torch.vis.live
+import bundleadjustment_tpu_torch.vis.debug
 import chip_smoke
 import profile_port
 import profile_chol

@@ -245,16 +245,8 @@ def test_unknown_modes_raise(field, value):
                                  device="cpu")
 
 
-@pytest.mark.parametrize("flags", [["--predetect"], ["--reconstruction-error", "gt.ply"],
-                                   ["--display-pointcloud"], ["--faces-type", "poisson"]])
-def test_unported_cli_flags_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--dataset-path", str(tmp_path), "--device", "cpu", *flags])
-
-
 @pytest.mark.parametrize("flags", [["--matcher", "xla"], ["--matcher", "pallas"],
-                                   ["--no-fused-tracking"], ["--no-warmup"],
-                                   ["--track-batch", "1"]])
+                                   ["--no-warmup"], ["--track-batch", "1"]])
 def test_no_op_cli_flags_say_so(flags):
     """Flags that tuned the JAX package's dispatch parse, leave the ported
     configuration valid, and their --help says they change nothing."""

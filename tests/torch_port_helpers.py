@@ -233,3 +233,25 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+def frontend_rank(rank, world, init_file, images, cfg_kw, out_dir):
+    """One gloo rank of `detect_batch_sharded` on the CPU; writes the
+    gathered Features and the all-gather count to out_dir/rank<r>.npz."""
+    import os
+
+    from bundleadjustment_tpu_torch.ops.features import FeatureConfig
+    from bundleadjustment_tpu_torch.parallel import multihost
+    from bundleadjustment_tpu_torch.parallel.frontend import detect_batch_sharded
+
+    torch.set_num_threads(1)
+    multihost.init_process_group(rank, world, init_file, device="cpu")
+    try:
+        before = multihost.COLLECTIVES["all_gather"]
+        f = detect_batch_sharded(images, FeatureConfig(**cfg_kw),
+                                 group=multihost.default_group(), device="cpu")
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+                 all_gathers=multihost.COLLECTIVES["all_gather"] - before,
+                 **{k: getattr(f, k).numpy() for k in f.__dataclass_fields__})
+    finally:
+        multihost.destroy_process_group()
