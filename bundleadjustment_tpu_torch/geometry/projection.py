@@ -12,6 +12,11 @@ from bundleadjustment_tpu_torch.device import resolve_device
 from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat
 
 
+def make_intrinsics(fx, fy, cx, cy, dtype=torch.float32, device="cuda"):
+    """The packed intrinsics [fx, fy, cx, cy] as a tensor on `device`."""
+    return torch.tensor([fx, fy, cx, cy], dtype=dtype, device=resolve_device(device))
+
+
 def intrinsics_matrix(K4):
     """[..., 4] -> [..., 3, 3]."""
     fx, fy, cx, cy = K4[..., 0], K4[..., 1], K4[..., 2], K4[..., 3]

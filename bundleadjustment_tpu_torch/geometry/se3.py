@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from bundleadjustment_tpu_torch.device import resolve_device
+
 _EPS = 1e-8
 
 
@@ -77,6 +79,11 @@ def rotmat_to_aa(R):
     tiny = theta < 1e-6
     return torch.where(tiny[..., None], aa_tiny,
                        torch.where(near_pi[..., None], aa_pi, aa_generic))
+
+
+def rt6_identity(dtype=torch.float32, device="cuda"):
+    """The identity transform, zeros [6], on `device`."""
+    return torch.zeros(6, dtype=dtype, device=resolve_device(device))
 
 
 def rt6_apply(rt, x):

@@ -3,7 +3,8 @@
 Port of `bundleadjustment_tpu/geometry/triangulation.py`: cheirality in both
 views, per-view chi2 reprojection gates (5.991), and the distance-ratio scale
 consistency gate. Batched over N candidate matches (and any leading batch
-dims of the second view); returns masks instead of erasing.
+dims of the second view); returns masks instead of erasing. Also the median
+scene depth of a camera (`median_scene_depth`).
 """
 
 from __future__ import annotations
@@ -79,3 +80,14 @@ def triangulate_gated(K4, extr1, extr2, uv1, uv2, sigma2_1, sigma2_2, valid,
     ok = valid & finite & cheir & reproj_ok & scale_ok
     X = torch.where(ok[..., None], X, torch.zeros_like(X))
     return X, ok
+
+
+def median_scene_depth(extr, points, valid):
+    """Median depth of the valid points [N, 3] in the camera `extr` [6]
+    (world -> camera); the lower median for an even count, +inf with no
+    valid point."""
+    R = aa_to_rotmat(extr[:3])
+    z = points @ R[2, :] + extr[5]
+    zs = torch.sort(torch.where(valid, z, torch.full_like(z, float("inf")))).values
+    n = int(valid.sum())
+    return zs[(n - 1) // 2] if n else zs.new_tensor(float("inf"))

@@ -1,17 +1,20 @@
-"""Descriptor matching: knn-2 Hamming search with ratio test and cross-check.
+"""Descriptor matching: knn-2 search with ratio test and cross-check.
 
-Port of `bundleadjustment_tpu/ops/matching.py` (Hamming metric; the L2
-metric is not on the ported path). Three entry points, one contract:
+Port of `bundleadjustment_tpu/ops/matching.py`. Three entry points, one
+contract:
 
 - `match_descriptors`: the reference form, which materialises the [M1, M2]
-  distance matrix (the JAX package's XLA matcher);
+  distance matrix (the JAX package's XLA matcher), for float descriptors
+  by squared L2 (the default, as in the JAX package: one matrix product,
+  `l2_distance_matrix`) or for packed binary ones by Hamming distance;
 - `match_descriptors_fused`: the top-2 search runs in kernel A
   (`ops/hamming.py`), the matrix never exists;
 - `match_descriptors_batch`: one query set against B train sets, one
   kernel A launch with a batch axis (keyframe neighbour search).
 
 A match is kept when best < ratio * second (second = +inf counts as the
-largest float), best <= max_dist, and, with cross_check, it is the best
+largest float; L2 compares distances, the square roots of the squared
+ones), best <= max_dist, and, with cross_check, it is the best
 query for its train index; ties go to the lowest query index. Both the
 per-train minimum and the tie-break are segment minima, done with
 `scatter_reduce(..., "amin")`.
@@ -58,17 +61,37 @@ def _filter(best, second, idx, valid_a, m2, ratio, max_dist, cross_check):
     return match_idx, match_dist
 
 
+def l2_distance_matrix(desc_a, desc_b, valid_a=None, valid_b=None):
+    """Squared L2 distances [M1, M2] of float descriptors [M1, D], [M2, D]
+    as |a|^2 + |b|^2 - 2 a.b, clamped at 0; invalid rows / columns +inf."""
+    a2 = torch.sum(desc_a * desc_a, -1, keepdim=True)
+    b2 = torch.sum(desc_b * desc_b, -1, keepdim=True)
+    d = torch.clamp(a2 + b2.T - 2.0 * (desc_a @ desc_b.T), min=0.0)
+    inf = torch.full_like(d, float("inf"))
+    if valid_a is not None:
+        d = torch.where(valid_a[:, None], d, inf)
+    if valid_b is not None:
+        d = torch.where(valid_b[None, :], d, inf)
+    return d
+
+
 def match_descriptors(desc_a, desc_b, valid_a=None, valid_b=None,
-                      metric="hamming", ratio=DEFAULT_RATIO, max_dist=None,
+                      metric="l2", ratio=DEFAULT_RATIO, max_dist=None,
                       cross_check=True):
     """knn-2 matching through the full distance matrix.
 
-    desc_a [M1, 8], desc_b [M2, 8] int32 packed descriptors. Returns
-    (match_idx [M1] int32, match_dist [M1] float32).
+    metric "l2": desc_a [M1, D], desc_b [M2, D] float descriptors, squared
+    distances compared in their square roots (ratio, max_dist and the
+    returned distance in L2 units); "hamming": [M1, 8], [M2, 8] int32
+    packed descriptors. Returns (match_idx [M1] int32, match_dist [M1]
+    float32).
     """
-    if metric != "hamming":
-        raise NotImplementedError(f"metric {metric!r}: only hamming is ported")
-    d = hamming_distance_matrix(desc_a, desc_b)
+    if metric == "l2":
+        d = l2_distance_matrix(desc_a, desc_b)
+    elif metric == "hamming":
+        d = hamming_distance_matrix(desc_a, desc_b)
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
     inf = torch.full_like(d, float("inf"))
     if valid_a is not None:
         d = torch.where(valid_a[:, None], d, inf)
@@ -80,6 +103,10 @@ def match_descriptors(desc_a, desc_b, valid_a=None, valid_b=None,
                 torch.full((m1,), float("inf"), device=d.device))
     best, idx = torch.min(d, dim=1)
     second = d.scatter(1, idx[:, None], float("inf")).min(dim=1).values
+    if metric == "l2":
+        best = torch.sqrt(best)
+        second = torch.sqrt(torch.where(torch.isinf(second),
+                                        torch.full_like(second, _BIG), second))
     mi, md = _filter(best[None], second[None], idx[None], None, d.shape[1],
                      ratio, max_dist, cross_check)
     return mi[0], md[0]

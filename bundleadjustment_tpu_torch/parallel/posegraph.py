@@ -22,6 +22,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from bundleadjustment_tpu_torch.device import resolve_device
+from bundleadjustment_tpu_torch.geometry import np_se3
 from bundleadjustment_tpu_torch.geometry.se3 import aa_to_rotmat, rotmat_to_aa
 from bundleadjustment_tpu_torch.solvers.schur import block_jacobi, pcg
 
@@ -171,3 +172,30 @@ def make_pose_graph(edge_i, edge_j, rel, weight, node_fixed, device="cuda"):
                      weight=t(weight, np.float32),
                      valid=torch.ones(len(edge_i), dtype=torch.bool, device=device),
                      node_fixed=t(node_fixed, bool))
+
+
+def build_odometry_graph(poses, loop_edges=None, odo_weight=1.0, loop_weight=1.0,
+                         node_fixed=None, device="cuda"):
+    """A PoseGraph of sequential odometry edges (i, i + 1) from the current
+    pose estimates [K, 6] (host array), plus optional loop-closure edges
+    [(i, j, rel6, weight or None for `loop_weight`)]; node 0 fixed unless
+    `node_fixed` [K] says otherwise."""
+    poses = np.asarray(poses)
+    K = len(poses)
+    ei, ej, rel, w = [], [], [], []
+    for i in range(K - 1):
+        ei.append(i)
+        ej.append(i + 1)
+        rel.append(np_se3.rt6_compose(poses[i], np_se3.rt6_inverse(poses[i + 1])))
+        w.append(odo_weight)
+    for i, j, r, lw in loop_edges or ():
+        ei.append(i)
+        ej.append(j)
+        rel.append(np.asarray(r))
+        w.append(loop_weight if lw is None else lw)
+    fixed = np.zeros(K, bool)
+    if node_fixed is None:
+        fixed[0] = True
+    else:
+        fixed[:] = node_fixed
+    return make_pose_graph(ei, ej, rel, w, fixed, device=device)

@@ -148,6 +148,9 @@ class TrackRecord:
     assoc_sig: np.ndarray | None = None
     feats: FrameFeatures | None = None
     assoc_kp: np.ndarray | None = None
+    # set by `finalize` when a trajectory refinement accepted a re-solve:
+    # the record's pose is then the refined one, already map-consistent
+    refined: bool = False
 
 
 def _pow2(n, minimum):
@@ -1406,6 +1409,7 @@ class BundleAdjustmentPipeline:
                 continue
             if huber_cost(rt[b], b) < huber_cost(extr_cur, b):
                 rec.extr = rt[b]
+                rec.refined = True
                 if rec.ref_kf is not None and m.kf_active[rec.ref_kf]:
                     rec.rel = np_se3.rt6_compose(
                         rt[b], np_se3.rt6_inverse(m.kf_pose[rec.ref_kf]))
@@ -1431,7 +1435,11 @@ class BundleAdjustmentPipeline:
         Keyframes read the BA-refined map; tracked frames ride their
         keyframes with segment-interpolated world corrections (the correction
         at the previous keyframe blended in time with the one observed at the
-        next keyframe). smooth=False returns the causal trajectory."""
+        next keyframe). A record whose re-solve `finalize` accepted gives its
+        refined pose (`_record_extr`) as it is: that pose was solved against
+        the BA-refined map, so a keyframe correction blended onto it would
+        count the BA's correction twice (the JAX package blends it in all
+        the same). smooth=False returns the causal trajectory."""
         m = self.map
         traj = self.trajectory
         n = len(traj)
@@ -1459,6 +1467,8 @@ class BundleAdjustmentPipeline:
         for i, rec in enumerate(traj):
             if act[i]:
                 extr = m.kf_pose[rec.slot]
+            elif rec.refined:
+                extr = self._record_extr(rec)
             else:
                 w_a = None
                 if rec.rel is not None and rec.ref_kf is not None and m.kf_active[rec.ref_kf]:

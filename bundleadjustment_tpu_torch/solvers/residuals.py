@@ -136,8 +136,13 @@ def chi2_errors(problem, R, t, points):
     return torch.sum(r * r, -1), z
 
 
-def prune_outliers_cams(problem, cams_rt6, points, chi2_max=CHI2_2D):
-    """Post-solve validity mask: chi2 gate + cheirality, axis-angle cameras."""
-    R, t = cams_to_Rt(cams_rt6)
+def prune_outliers(problem, R, t, points, chi2_max=CHI2_2D):
+    """Post-solve validity mask: chi2 gate + cheirality, cameras as (R, t)."""
     chi2, z = chi2_errors(problem, R, t, points)
     return problem.valid & (chi2 <= chi2_max) & (z > 0)
+
+
+def prune_outliers_cams(problem, cams_rt6, points, chi2_max=CHI2_2D):
+    """`prune_outliers` taking axis-angle cameras [K, 6]."""
+    R, t = cams_to_Rt(cams_rt6)
+    return prune_outliers(problem, R, t, points, chi2_max)

@@ -50,7 +50,10 @@ script exits non-zero without printing the final line:
    iterations with the camera system solved by kernel E (KERNEL_OPS_CHOL)
    against the plain versions (PLAIN_OPS_CHOL) with the criteria of phase
    4, and against the same solve through the library call (KERNEL_OPS);
-   milliseconds per LM iteration of the E and of the library variant;
+   milliseconds per LM iteration of the E and of the library variant, each
+   with the roofline fields of `utils/flops.solve_roofline` (the port's
+   own bound and the share of it reached, which must not exceed 1, beside
+   the JAX package's FLOP model);
 7. two-view estimators: the batched SVDs of `geometry/epipolar.py` (256
    8-point and 4-point systems, the [C, N, 4, 4] triangulations of 4 and 8
    candidate motions) and one whole `recover_pose_two_view`, timed on the
@@ -74,8 +77,9 @@ script exits non-zero without printing the final line:
    `LMConfig(solver="pcg", pcg_iters=60)`, kernels against plain versions
    (cameras within 5e-3, the JAX package's PCG bound), B launched at least
    once an LM iteration and C, K5, D, E and B with back-substitution never;
-   ms per LM iteration of PCG and of the exact solve, in turns, and one
-   PCG iteration's device time by kernel (one profiler session);
+   ms per LM iteration of PCG and of the exact solve, in turns, with their
+   roofline fields (as phase 6), and one PCG iteration's device time by kernel (one
+   profiler session);
 12. flat sharded PCG (`parallel/sharded_ba.py`) at 64c/10k in an NCCL
    group of one against the single-device flat PCG solve on the card:
    cost0, cameras within 5e-3, and the all-reduces and their bytes equal
@@ -89,12 +93,15 @@ script exits non-zero without printing the final line:
    landmarks, observations, longest track O, its Schur route) beside the
    JAX package's TPU record's counts, the launches of A, B, C and D, the
    seconds spent seeding, and kernel C against route (c) on its final
-   system;
+   system; then config 7's measurement on that map: the marginal ms of a
+   dense LM iteration (`bench/protocols.ba_marginal`), its stderr and its
+   roofline fields (the share of the port's bound in (0, 1]);
 15. predetect pipeline: the 40-frame sequence through the CLI with
    `--predetect` (detection of 32 frames a pass, then matching and
    estimation a frame): ATE < 0.05 m, frames/s beside phase 8's; then
    detection ms a frame batched (B = 32) against per-frame
-   `detect_and_describe` (CUDA events), and over the 40 frames how many
+   `detect_and_describe` (CUDA events), the batched figure's
+   `utils/flops.frontend_fields`, and over the 40 frames how many
    keypoints differ between batched and per-frame detection on the card
    (validity, descriptor, largest |xy| difference);
 16. output pipeline: the same sequence through the CLI with
@@ -117,14 +124,23 @@ script exits non-zero without printing the final line:
    points' bytes over 3.35 TB/s and 9 operations a pair over 67 TFLOP/s)
    and, beside it, one write of their materialised distance blocks over
    3.35 TB/s;
-19. per-path launch check: every kernel was launched by the run of the path
+19. protocol runner: `bench/protocols.config1` at full size (50 frames
+   640x480, 1000 features, 8 levels) on the card, its JSON line, ATE < 0.05
+   m;
+20. fresh-process resume: the smoke's 40-frame sequence cut at frame 20 by
+   a checkpoint, resumed by the protocol runner's `--resume-worker` in a
+   child process on the card against the uninterrupted run here: |ATE
+   difference| <= max(0.6 ATE, 0.01 m), every frame tracked, no jax module
+   in the child;
+21. per-path launch check: every kernel was launched by the run of the path
    that carries it (A, B, B with back-substitution and C: phase 8; K5:
    phase 9, whose local BAs also launch B and C; D: phase 5; E: phase 6, at
    least 10 times; A in every monocular run, B and C in the dense standard
    run; B in the dense PCG solve; A and B in the PCG pipeline and the
    depth-seeded run; A in the windowed run; A, B and C in the predetect and
-   output runs). Each count is reset just before that run and read just
-   after it.
+   output runs; A, B and C in the config-1 protocol run and in the resume
+   phase's run here). Each count is reset just before that run and read
+   just after it.
 
 Then a `{"kernels": [...]}` line and, last, `{"ok": true, "device": ...}`.
 Needs one CUDA device; exits non-zero without one.
@@ -177,7 +193,9 @@ ALSO_LAUNCHED = {"pipeline_sharded": _DENSE,
                  "pipeline_standard": ("hamming_top2",),
                  "pipeline_standard_dense": ("hamming_top2", *_DENSE),
                  "pipeline_predetect": ("hamming_top2", *_DENSE),
-                 "pipeline_outputs": ("hamming_top2", *_DENSE)}
+                 "pipeline_outputs": ("hamming_top2", *_DENSE),
+                 "protocol_config1": ("hamming_top2", *_DENSE),
+                 "protocol_resume_worker": ("hamming_top2", *_DENSE)}
 # the least number of launches a path's run must show (default 1)
 MIN_LAUNCHES = {"chol_solve": 10}
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
@@ -396,14 +414,10 @@ def check_blocks(tag, name, got, ref):
 # largest of its bytes, its 25 operations a pair at the float32 rate, and
 # its 8 popcounts a pair at POPC_PER_CLOCK_SM an SM and clock (sm_90's
 # issue rate for POPC, the CUDA programming guide's throughput table) at the
-# card's top SM clock (`nvidia-smi --query-gpu=clocks.max.sm`).
-
-EVAL_OPS = 320  # flops per valid observation of kernel B's eval + assembly
-BS_OPS = 36  # more per valid observation for the back-substitution
-PREP_OPS = 60  # per landmark: damping, V^-1, chol(V^-1), zv
-G_OPS, WZ_OPS = 90, 30  # per non-zero W slot: G = W C, W zv
-PAIR_OPS = 216  # per slot pair of a landmark: 36 entries of G G'^T, each 3
-                # multiplies, 2 adds and the add into S
+# card's top SM clock (`nvidia-smi --query-gpu=clocks.max.sm`). The
+# operation counts of kernels B, C, K5 and D (EVAL_OPS, BS_OPS, PREP_OPS,
+# G_OPS, WZ_OPS, PAIR_OPS) are `utils/flops`'s, which bounds a whole LM
+# iteration with them.
 
 
 def nbytes(*tensors):
@@ -456,12 +470,16 @@ def slot_counts(W18):
 
 
 def schur_bound(ins, outs, W18, L):
+    from bundleadjustment_tpu_torch.utils.flops import G_OPS, PAIR_OPS, PREP_OPS, WZ_OPS
+
     _, slots, pairs = slot_counts(W18)
     return bound(nbytes(*ins, *outs),
                  PREP_OPS * L + (G_OPS + WZ_OPS) * slots + PAIR_OPS * pairs)
 
 
 def prepare_bound(ins, outs, W18, L):
+    from bundleadjustment_tpu_torch.utils.flops import G_OPS, PREP_OPS, WZ_OPS
+
     _, slots, _ = slot_counts(W18)
     return bound(nbytes(*ins, *outs), PREP_OPS * L + (G_OPS + WZ_OPS) * slots)
 
@@ -798,6 +816,7 @@ def compare_dense_kernels(prob, cams, pts, tag, names=None):
 
     from bundleadjustment_tpu_torch.solvers import dense_kernels as dk
     from bundleadjustment_tpu_torch.solvers.dense_ba import schur_route
+    from bundleadjustment_tpu_torch.utils.flops import BS_OPS, EVAL_OPS
 
     names = set(names or ("dense_eval_assemble", "dense_eval_assemble_bs",
                           "schur_prepare_s", "schur_qqt_partial", "schur_prepare",
@@ -1139,6 +1158,19 @@ def lm_iteration_ms(prob, cams, pts, ops, short=10, long=30, tries=3, **lm):
     return (best(long) - best(short)) / (long - short) * 1e3
 
 
+def solve_roofline(ms, prob, solver="dense", pcg_iters=0):
+    """`utils/flops.solve_roofline` of a measured ms an LM iteration on the
+    card: the port's own bound and its share (which must not exceed 1), and
+    the JAX package's FLOP model (whose ratio counts TPU mechanics too, see
+    that module)."""
+    from bundleadjustment_tpu_torch.utils import flops
+
+    roof = flops.solve_roofline(ms, prob, "cuda", solver, pcg_iters)
+    if not 0 < roof["port_bound_share"] <= 1:
+        raise AssertionError(f"an LM iteration of {ms} ms against its bound: {roof}")
+    return {"ms_per_iter": ms, **roof}
+
+
 def phase_chol_solve_path(device):
     """Kernel E's path: the 64c/10k/O=16 dense solve with the camera system
     (N = 384) solved by kernel E, against the plain versions and against
@@ -1160,10 +1192,13 @@ def phase_chol_solve_path(device):
     rel = abs(float(i_e["cost"]) - float(i_l["cost"])) / abs(float(i_l["cost"]))
     ms = [lm_iteration_ms(prob, cams, pts, getattr(dk, t)) for t in
           ("KERNEL_OPS", "KERNEL_OPS_CHOL", "KERNEL_OPS_CHOL", "KERNEL_OPS")]
-    emit({"phase": "chol_solve_vs_library", "K": 64, "L": 10_000, "N": 384,
+    O = int(prob.cam_idx.shape[1])
+    emit({"phase": "chol_solve_vs_library", "K": 64, "L": 10_000, "N": 384, "O": O,
           "cams_max_abs_diff": cam_err, "cost_rel_diff": rel,
           "lm_iteration_ms_library": [ms[0], ms[3]],
-          "lm_iteration_ms_kernel_e": [ms[1], ms[2]]})
+          "lm_iteration_ms_kernel_e": [ms[1], ms[2]],
+          "roofline_library": solve_roofline(min(ms[0], ms[3]), prob),
+          "roofline_kernel_e": solve_roofline(min(ms[1], ms[2]), prob)})
     if not (cam_err < 5e-4 and rel < 1e-3):
         raise AssertionError("the solve through kernel E and the solve through "
                              "the library Cholesky disagree")
@@ -1200,9 +1235,12 @@ def phase_dense_pcg_solve(device):
           for lm in ({}, pcg, pcg, {})]
     # where one PCG LM iteration's time goes (with the seed eval)
     one = lambda: dense_ba_solve(prob, cams, pts, LMConfig(max_iters=1, **pcg))  # noqa: E731
-    emit({"phase": "dense_pcg_vs_exact", "K": 128, "L": 100_000,
+    O = int(prob.cam_idx.shape[1])
+    emit({"phase": "dense_pcg_vs_exact", "K": 128, "L": 100_000, "O": O,
           "pcg_iters": PCG_ITERS, "lm_iteration_ms_exact": [ms[0], ms[3]],
           "lm_iteration_ms_pcg": [ms[1], ms[2]],
+          "roofline_exact": solve_roofline(min(ms[0], ms[3]), prob),
+          "roofline_pcg": solve_roofline(min(ms[1], ms[2]), prob, "pcg", PCG_ITERS),
           "pcg_one_iteration_profile": device_breakdown(one)})
     wrong = {n: counts[n] for n in NOT_ON_PCG if counts[n]}
     if counts["dense_eval_assemble"] < cfg.max_iters or wrong:
@@ -1650,6 +1688,16 @@ def phase_pipeline_depth_seeded(device, n_frames=CONFIG7_FRAMES):
     if not (ate < 0.05 and pipe.initialized and not lost):
         raise AssertionError(f"depth-seeded run: ATE {ate} m (bound 0.05) or "
                              f"frames lost: {statuses}")
+    # config 7's measurement on this map: the marginal ms of a dense LM
+    # iteration (bench/protocols.ba_marginal: 8 / 24 / 48 / 72 iterations,
+    # best of 2 each, a least-squares line) with its roofline
+    from bundleadjustment_tpu_torch.bench.protocols import ba_marginal
+
+    marginal = ba_marginal(pipe, device)
+    emit({"phase": "depth_seeded_ba_marginal", **marginal})
+    if not (marginal["ba_marginal_ms"] > 0
+            and 0 < marginal["ba_marginal_port_bound_share"] <= 1):
+        raise AssertionError(f"config-7 marginal fit failed: {marginal}")
     return counts
 
 
@@ -1682,8 +1730,12 @@ def phase_pipeline_predetect(device, data, frames, n_frames, res_default, runs):
             desc_diff += int((batch.desc[i] != one.desc).any(1)[both].sum())
             if bool(both.any()):
                 xy_diff = max(xy_diff, float((batch.xy[i] - one.xy).abs()[both].max()))
+    from bundleadjustment_tpu_torch.utils.flops import frontend_fields
+
     emit({"phase": "predetect_detection", "batch": B, "frames": len(frames),
           "batched_ms_per_frame": batched_ms, "per_frame_ms": single_ms,
+          **frontend_fields(batched_ms, 480, 640, device, cfg.n_features,
+                            cfg.n_levels, cfg.scale_factor, prefix="batched_"),
           "keypoints_per_frame": int(batch.valid.shape[1]),
           "valid_differ": valid_diff, "desc_differ": desc_diff,
           "max_abs_xy_diff_px": xy_diff,
@@ -1920,6 +1972,61 @@ def phase_pipeline_shapes(pipe, results):
         results[name]["shapes"]["pipeline_final_ba"] = r
 
 
+def phase_protocol_config1(device):
+    """The port's protocol runner at full size: `bench/protocols.config1`
+    (50 frames 640x480 forward, seed 11, 1000 features, 8 levels, no local
+    BA, the 3 x 100 final BA) on the card; its JSON line, ATE < 0.05 m (the
+    JAX package's protocol bound). Returns the run's launch counts."""
+    from bundleadjustment_tpu_torch.bench import protocols
+
+    # run_protocol zeroes the launch counts just before the frames and
+    # reads them just after finalize
+    out = protocols.config1(device=device)
+    emit({"phase": "protocol_config1", **out, "ate_bound_m": 0.05})
+    if not out["ate_rmse_m"] < 0.05:
+        raise AssertionError(f"config 1: ATE {out['ate_rmse_m']} m >= 0.05")
+    return out["launches"]
+
+
+def phase_protocol_resume_worker(device, n_frames=40, cut=20):
+    """The protocol runner's fresh-process resume (`bench/protocols.
+    checkpoint_resume`, the core of protocol 6r) on the smoke's 40-frame
+    sequence with the CLI's default configuration and local BA: `cut`
+    frames here, a checkpoint, the uninterrupted rest here; the checkpoint
+    resumed by `python -m bundleadjustment_tpu_torch.bench.protocols
+    --resume-worker` on the card. |ATE difference| <= max(0.6 ATE, 0.01 m)
+    (tests/test_checkpoint_protocol.py), every frame in both trajectories,
+    and the child loaded no jax module. Returns the launch counts of this
+    process's run."""
+    import dataclasses
+
+    import torch
+
+    from bundleadjustment_tpu_torch import cli
+    from bundleadjustment_tpu_torch.bench import protocols
+
+    render = dict(n_frames=n_frames, width=640, height=480, fx=525.0, fy=525.0,
+                  trajectory="forward", motion_step=0.03, seed=11)
+    args = cli.build_parser().parse_args(pipeline_argv("", "", n_frames, device))
+    r = protocols.checkpoint_resume(render, dataclasses.asdict(cli.config_from_args(args)),
+                                    cut, device, timeout=600)
+    resumed, ate, statuses = r["resumed"], r["ate_straight"], r["statuses"]
+    bound = max(0.6 * ate, 0.01)
+    emit({"phase": "protocol_resume_worker", "cut": cut, "frames": n_frames,
+          "statuses": {k: statuses.count(k) for k in sorted(set(statuses))},
+          "ate_straight_m": ate, "resumed": resumed, "ate_abs_diff_m":
+          abs(resumed["ate_rmse_m"] - ate), "bound_m": bound,
+          "worker_wall_s": r["wall_resume"], "checkpoint_bytes": r["checkpoint_bytes"],
+          "launches": r["launches"]})
+    if resumed["jax_modules"] or resumed["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"the resume worker loaded {resumed['jax_modules']} "
+                             f"or ran on {resumed['device']}")
+    if not (len(statuses) == resumed["frames_tracked"] == n_frames
+            and abs(resumed["ate_rmse_m"] - ate) <= bound):
+        raise AssertionError(f"resumed run: {resumed} against ATE {ate} m")
+    return r["launches"]
+
+
 def check_launches(runs):
     """Per-path launch check: each kernel launched by the run of its path
     (KERNELS), and the sharded run's local BAs and evals through B and C."""
@@ -1977,6 +2084,8 @@ def main():
         phase_checkpoint_resume(device, data, n_frames, res, tmp)
         phase_outputs_at_scale(device, frames, K4)
     runs["pipeline_depth_seeded"] = phase_pipeline_depth_seeded(device)
+    runs["protocol_config1"] = phase_protocol_config1(device)
+    runs["protocol_resume_worker"] = phase_protocol_resume_worker(device)
     check_launches(runs)
     phase_pipeline_shapes(pipe, results)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -22,13 +22,17 @@ COPIES = ["data/tum.py", "data/replica.py", "data/synthetic.py",
 # copy -> top-level names that differ on purpose
 DIFFERS = {
     "native/__init__.py": {"_BUILD", "_SO", "_build"},  # builds into _build/
-    "utils/profiling.py": {"device_trace"},  # the JAX trace helper is left out
+    "utils/profiling.py": {"device_trace"},  # torch.profiler in place of jax's
 }
 # copy -> functions that take a `device` and pass it on (Poisson on the card)
 DEVICE_ARG = {"vis/mesh.py": {"create_map_mesh"}}
 # device module of the port -> the host functions it copies from its source
 PARTIAL = {"vis/poisson.py": ["_to_unit_cube", "surface_nets"],
-           "metrics/reconstruction.py": ["percentile_scale", "normalize_cloud"]}
+           "metrics/reconstruction.py": ["percentile_scale", "normalize_cloud"],
+           "utils/flops.py": ["FLOP_MODEL_VERSION", "dense_ba_iter_flops",
+                              "dense_ba_iter_bytes", "_frontend_level_dims",
+                              "_frontend_level_allocs", "frontend_flops"],
+           "utils/marginal.py": ["fit_line", "measure_marginal"]}
 
 
 class _DropDevice(ast.NodeTransformer):

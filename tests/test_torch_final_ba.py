@@ -28,7 +28,7 @@ from bundleadjustment_tpu.pipeline import BundleAdjustmentPipeline as JaxPipelin
 from bundleadjustment_tpu.pipeline import PipelineConfig as JaxConfig
 from bundleadjustment_tpu_torch.pipeline.config import PipelineConfig
 from bundleadjustment_tpu_torch.pipeline.driver import BundleAdjustmentPipeline
-from bundleadjustment_tpu_torch.solvers import dense_ba as port_dense
+from bundleadjustment_tpu_torch.solvers import dense_kernels
 from bundleadjustment_tpu_torch.solvers.lm import CHEIRALITY_PENALTY, LMConfig
 
 
@@ -75,14 +75,17 @@ def test_final_ba_all_behind_trials_are_failed_solves(monkeypatch):
     base = dict(init_type="gtdepth", estimation="ba", n_features=200, n_levels=3,
                 local_ba=False, ba_layout="dense_landmark")
     nan_steps = []  # per port LM step: did the camera solve come back non-finite
-    solve_nan = port_dense.cholesky_solve_nan
+    # the dense solve's default table; its camera solve (`chol_solve`, the
+    # library call) is the one the CPU run takes
+    ops = dense_kernels.KERNEL_OPS
+    solve_nan = ops.chol_solve
 
     def counted(S, b):
         x = solve_nan(S, b)
         nan_steps.append(not bool(np.isfinite(x.numpy()).all()))
         return x
 
-    monkeypatch.setattr(port_dense, "cholesky_solve_nan", counted)
+    monkeypatch.setattr(dense_kernels, "KERNEL_OPS", ops._replace(chol_solve=counted))
     logs = {"jax": _final_solves(JaxPipeline(JaxConfig(track_batch=1, **base), K4,
                                              160, 120), ds)}
     logs["port"] = _final_solves(BundleAdjustmentPipeline(

@@ -69,7 +69,7 @@ def test_matchers_match_jax(rng, ratio, max_dist, cross_check):
                                        jnp.asarray(va), jnp.asarray(valid),
                                        interpret=True, **kw)
     args = (as_tensor(q), as_tensor(t), torch.from_numpy(va), torch.from_numpy(valid))
-    for got in (tm.match_descriptors(*args, **kw),
+    for got in (tm.match_descriptors(*args, metric="hamming", **kw),
                 tm.match_descriptors_fused(*args, **kw)):
         for r in (ref, ref_f):
             np.testing.assert_array_equal(got[0].numpy(), np.asarray(r[0]))

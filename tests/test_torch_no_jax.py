@@ -44,6 +44,10 @@ import bundleadjustment_tpu_torch.vis.pointcloud
 import bundleadjustment_tpu_torch.vis.poisson
 import bundleadjustment_tpu_torch.vis.live
 import bundleadjustment_tpu_torch.vis.debug
+import bundleadjustment_tpu_torch.bench.protocols
+import bundleadjustment_tpu_torch.bench.solve
+import bundleadjustment_tpu_torch.utils.flops
+import bundleadjustment_tpu_torch.utils.marginal
 import chip_smoke
 import profile_port
 import profile_chol
