@@ -31,11 +31,15 @@ a ground-truth cloud by ICP, stores the fitness as
 `--display-pointcloud` writes live PLY snapshots of the map while it runs
 (`map_live.ply`, then `map_final.ply`) and `<prefix>_cloud.ply`.
 
---no-warmup, --matcher and --track-batch are accepted and change nothing
-(their --help says so): they tuned the JAX package's compilation and
-dispatch, which the port does not have; the JAX microbatch of --track-batch
-also froze the local-map snapshot for a batch, and its --help says how far
-the port's per-frame result stays from that.
+`--track-batch N` (default 8, as in the JAX CLI) tracks in microbatches of
+N frames once tracking is steady: one upload, the B frames' device work, one
+fetch, with the guided local-map pass matching against a landmark snapshot
+frozen at the start of the batch; `--track-batch 1` and `--verbose` track
+one frame at a time.
+
+--no-warmup and --matcher are accepted and change nothing (their --help
+says so): they tuned the JAX package's compilation and its choice of
+matcher, which the port does not have.
 """
 
 from __future__ import annotations
@@ -85,11 +89,10 @@ def build_parser():
     p.add_argument("--no-warmup", action="store_true", default=False,
                    help=no_op + "compiles nothing ahead of the first frame")
     p.add_argument("--track-batch", type=int, default=8,
-                   help=no_op + "tracks one frame at a time, as the JAX CLI "
-                   "does at --track-batch 1; against the JAX CLI's default "
-                   "microbatch of 8 it agrees to the JAX package's own "
-                   "tolerance for it (statuses and keyframes equal, map size "
-                   "within 2%%, ATE within 0.01 m)")
+                   help="frames a tracking microbatch takes once tracking is "
+                   "steady (one upload and one fetch a batch, the local-map "
+                   "snapshot frozen for the batch); 1 tracks one frame at a "
+                   "time, as does --verbose")
     p.add_argument("--ba-layout", choices=["auto", "flat", "dense_landmark"],
                    default="auto")
     p.add_argument("--global-ba", choices=["single", "windowed", "sharded"],

@@ -172,12 +172,24 @@ def resize_matrix(dst, src):
     return w.T.copy()  # [dst, src]
 
 
+@functools.lru_cache(maxsize=256)
+def _const(device, name, *args):
+    """A constant of the detector on `device`, copied there once: "resize"
+    (resize_matrix(*args)), "disc" (the orientation disc's offsets) or
+    "brief" (the BRIEF pattern). A copy from the host's pageable memory
+    waits for the card, so none is made inside a batch of device work
+    after the first."""
+    a = {"resize": lambda: resize_matrix(*args), "disc": lambda: _ORI_OFFSETS,
+         "brief": lambda: _BRIEF}[name]()
+    return torch.from_numpy(a).to(device)
+
+
 def _resize_linear(img, h_out, w_out):
     """Resize [B, H, W] frames: two batched products with the same weights
     for every frame."""
     B, H, W = img.shape
-    wh = torch.from_numpy(resize_matrix(h_out, H)).to(img.device)
-    ww = torch.from_numpy(resize_matrix(w_out, W)).to(img.device)
+    wh = _const(img.device, "resize", h_out, H)
+    ww = _const(img.device, "resize", w_out, W)
     return torch.bmm(torch.bmm(wh.expand(B, h_out, H), img),
                      ww.T.expand(B, W, w_out))
 
@@ -226,7 +238,7 @@ def orientation_angles(img_blur, ys, xs):
     """Intensity-centroid orientation over a radius-15 disc; img_blur
     [B, H, W], keypoint pixels ys, xs [B, M]."""
     _, H, W = img_blur.shape
-    off = torch.from_numpy(_ORI_OFFSETS).to(img_blur.device)
+    off = _const(img_blur.device, "disc")
     yy = torch.clamp(ys[..., None] + off[0], 0, H - 1)
     xx = torch.clamp(xs[..., None] + off[1], 0, W - 1)
     patch = _gather2d(img_blur, yy, xx)
@@ -249,7 +261,7 @@ def brief_descriptors(img_blur, ys, xs, angles):
     """Rotation-steered BRIEF-256 of keypoints ys, xs, angles [B, M] in
     img_blur [B, H, W], packed to [B, M, 8] int32."""
     _, H, W = img_blur.shape
-    pat = torch.from_numpy(_BRIEF).to(img_blur.device)
+    pat = _const(img_blur.device, "brief")
     ca = _per_row(torch.cos, angles)[..., None]
     sa = _per_row(torch.sin, angles)[..., None]
 

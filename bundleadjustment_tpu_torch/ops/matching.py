@@ -10,7 +10,10 @@ contract:
 - `match_descriptors_fused`: the top-2 search runs in kernel A
   (`ops/hamming.py`), the matrix never exists;
 - `match_descriptors_batch`: one query set against B train sets, one
-  kernel A launch with a batch axis (keyframe neighbour search).
+  kernel A launch with a batch axis (keyframe neighbour search);
+- `match_descriptors_pairwise`: B query sets against B train sets, pair b
+  against pair b, one kernel A launch with a query batch stride (the
+  tracking microbatch's frame k-1 -> frame k matches).
 
 A match is kept when best < ratio * second (second = +inf counts as the
 largest float; L2 compares distances, the square roots of the squared
@@ -138,3 +141,17 @@ def match_descriptors_batch(desc_a, descs_b, valid_a=None, valids_b=None,
     best, second, idx = hamming_top2(desc_a[None], descs_b, valids_b)
     va = None if valid_a is None else valid_a[None].expand(B, -1)
     return _filter(best, second, idx, va, m2, ratio, max_dist, cross_check)
+
+
+def match_descriptors_pairwise(descs_a, descs_b, valids_a=None, valids_b=None,
+                               ratio=DEFAULT_RATIO, max_dist=None,
+                               cross_check=True):
+    """Match B query sets [B, M1, 8] against B train sets [B, M2, 8], set b
+    against set b, in one kernel A launch: each pair as
+    `match_descriptors_fused` matches it. Returns (idx [B, M1], dist
+    [B, M1])."""
+    B, m2 = descs_b.shape[0], descs_b.shape[1]
+    if valids_b is None:
+        valids_b = torch.ones((B, m2), dtype=torch.bool, device=descs_b.device)
+    best, second, idx = hamming_top2(descs_a, descs_b, valids_b)
+    return _filter(best, second, idx, valids_a, m2, ratio, max_dist, cross_check)

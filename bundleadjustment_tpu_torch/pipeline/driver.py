@@ -19,21 +19,24 @@ kernel A; dense BA goes through kernels B and C (K5 or kernel D in the
 sharded global BA and for more than 64 observations per landmark; B alone
 with PCG).
 
-Differences from the JAX driver:
+Tracking runs in microbatches of `track_batch` frames (default 8, as in
+the JAX package) once it is steady: `process_frames` runs B frames through
+`track_batch_step` (detection, the B frame-to-frame matches in one kernel A
+launch, association, motion-only BA and the guided local-map pass against a
+landmark snapshot frozen at the start of the batch), with one upload before
+it and one fetch after it; `process_frame` then replays each frame's host
+bookkeeping from those results. Frames after a keyframe or a tracking loss
+inside a batch are re-run. `track_batch = 1`, a verbose run, predetect and
+the essential_or_homography mode track one frame at a time.
 
-- tracking runs one frame at a time (`process_frames` has the per-frame
-  and the predetect branches, not the microbatch); `track_batch` and
-  `matcher` are accepted and ignored. The JAX CLI's default is the
-  `process_frames` microbatch (`track_batch = 8`), whose guided local-map
-  pass matches against a landmark snapshot frozen at the start of each
-  batch, so its map and poses differ slightly from per-frame tracking.
-  The port's per-frame run lies within the JAX package's own tolerance for
-  that microbatch: statuses and keyframe counts equal, map sizes within
-  2%, ATE within 0.01 m (tests/test_torch_pipeline.py,
-  `test_default_tracking_matches_jax_default`). None of the differences
-  below changes a result;
+Differences from the JAX driver (none changes a result):
+
+- `matcher` is accepted and ignored: every Hamming top-2 search goes
+  through kernel A on the card and its plain version on the CPU;
 - no power-of-two shape buckets: they existed to reuse jit compilations
-  (the two-view estimators get the real pairs and an all-true mask);
+  (the two-view estimators get the real pairs and an all-true mask; the
+  local-map snapshot holds exactly its landmarks, and a batch at the end
+  of a sequence runs at its own length instead of being padded);
 - the RANSAC samples come from a CPU `torch.Generator` seeded with
   `config.seed`, not from a JAX key: other samples, the same distribution.
 """
@@ -46,17 +49,22 @@ import numpy as np
 import torch
 
 from bundleadjustment_tpu_torch.device import resolve_device
-from bundleadjustment_tpu_torch.geometry import np_se3
+from bundleadjustment_tpu_torch.geometry import np_se3, se3
 from bundleadjustment_tpu_torch.geometry.epipolar import (
     recover_pose_two_view,
     sample_indices,
 )
 from bundleadjustment_tpu_torch.geometry.triangulation import triangulate_gated
 from bundleadjustment_tpu_torch.mapstate.scene import SceneMap
-from bundleadjustment_tpu_torch.ops.features import FeatureConfig, detect_and_describe
+from bundleadjustment_tpu_torch.ops.features import (
+    FeatureConfig,
+    detect_and_describe,
+    detect_batch,
+)
 from bundleadjustment_tpu_torch.ops.matching import (
     match_descriptors_batch,
     match_descriptors_fused,
+    match_descriptors_pairwise,
 )
 from bundleadjustment_tpu_torch.pipeline.config import PipelineConfig
 from bundleadjustment_tpu_torch.solvers.dense_ba import (
@@ -176,6 +184,139 @@ def _feat_capacity(config: PipelineConfig):
     return config.n_features + 16 * config.n_levels
 
 
+def _associate_and_solve(K4, pred, xyz_p, ok_p, idx, dist, xy, sig2, *,
+                         assoc_max, max_obs, mcfg):
+    """Association and first-pass motion-only BA of one tracked frame: a
+    match (idx [M], dist) of a trackable previous keypoint (ok_p, landmark
+    xyz_p) with a distance under `assoc_max`, the first `max_obs` of them,
+    solved from the predicted pose pred [6]. Returns (ok, safe, rt [6],
+    inl [M]), safe the matched keypoint index clamped at 0."""
+    ok = (idx >= 0) & ok_p & (dist < assoc_max)
+    ok = ok & (torch.cumsum(ok.to(torch.int64), 0) <= max_obs)
+    safe = torch.clamp(idx, min=0).to(torch.int64)
+    rt, inl = motion_only_ba(K4, pred[None], xyz_p[None], xy[safe][None],
+                             sig2[safe][None], ok[None], mcfg)
+    return ok, safe, rt[0], inl[0]
+
+
+def track_batch_step(grays, prev_desc, prev_valid, prev_xyz, prev_ok, prev_sid,
+                     lm_xyz, lm_desc, lm_valid, last_extr, prev_extr, K4, *,
+                     feat_cfg, ratio, assoc_max, mcfg, max_obs, min_track,
+                     pnp_guard, tlm=False, window_px=12.0, search_max=64.0,
+                     width=640, height=480):
+    """The tracking microbatch on the device: B tracked frames, with no
+    host sync between the inputs' upload and the outputs' fetch.
+
+    Port of the JAX package's `_track_batch_jit`. Detection of the B frames
+    [B, H, W] runs as one `detect_batch` (it does not depend on the
+    tracking state), and the B frame-to-frame matches (frame k - 1 as the
+    query set, frame -1 being `prev_desc`, against frame k) as one kernel A
+    launch. Then each frame in turn: the float32 constant-velocity
+    prediction from the two last poses, association (a match of a trackable
+    previous keypoint with a distance under `assoc_max`, the first
+    `max_obs`), motion-only BA, and the host's fallback rules (fewer than
+    `min_track` associations, or a translation jump of `pnp_guard` or more,
+    keep the prediction and write nothing). With `tlm`, the guided
+    local-map pass: the snapshot of the well-observed landmarks (lm_xyz,
+    lm_desc, lm_valid [N], frozen for the batch: the map changes only at
+    keyframes, which end a batch) projected at the first-pass pose,
+    matched (kernel A, ratio 0.9, `search_max`) against the keypoints not
+    yet associated inside a `window_px` window, and the pose re-solved over
+    the enlarged set, which wins when it keeps at least as many inliers.
+    Each keypoint's landmark state (position, trackable, snapshot index
+    `sid`, N meaning none) passes to the next frame through the match
+    permutation, as the host's observation writes would.
+
+    Returns (xy, octave, sigma2, desc, valid, idx, dist, ok, inl, rt, hit,
+    idx2, inl2, rt2, use2), stacked along B. Results after the first
+    keyframe or tracking loss of the batch are invalid: the host discards
+    and re-runs those frames."""
+    B = grays.shape[0]
+    M, N = prev_desc.shape[0], lm_xyz.shape[0]
+    dev = grays.device
+    f = detect_batch(grays, feat_cfg)
+    idx_all, dist_all = match_descriptors_pairwise(
+        torch.cat([prev_desc[None], f.desc[:-1]]).contiguous(), f.desc,
+        torch.cat([prev_valid[None], f.valid[:-1]]), f.valid, ratio=ratio)
+    drop_m = torch.full((M,), M, dtype=torch.int64, device=dev)
+    lm_ids = torch.arange(N, dtype=torch.int64, device=dev)
+    xyz_p, ok_p, sid_p, extr1, extr2 = prev_xyz, prev_ok, prev_sid, last_extr, prev_extr
+    outs = []
+    for k in range(B):
+        vel = se3.rt6_compose(extr1, se3.rt6_inverse(extr2))
+        pred = se3.rt6_compose(vel, extr1)
+        idx, dist = idx_all[k], dist_all[k]
+        xy, sig2, valid = f.xy[k], f.sigma2[k], f.valid[k]
+        ok, safe, rt, inl = _associate_and_solve(
+            K4, pred, xyz_p, ok_p, idx, dist, xy, sig2, assoc_max=assoc_max,
+            max_obs=max_obs, mcfg=mcfg)
+        good = ok.sum() >= min_track
+        if pnp_guard is not None:
+            good = good & (torch.linalg.norm(rt[3:] - pred[3:]) < pnp_guard)
+        extr = torch.where(good, rt, pred)
+        eff = ok & inl & good
+        if tlm:
+            R = se3.aa_to_rotmat(extr[None, :3])[0]
+            xc = lm_xyz @ R.T + extr[3:]
+            z = xc[:, 2]
+            zs = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+            u = K4[0] * xc[:, 0] / zs + K4[2]
+            v = K4[1] * xc[:, 1] / zs + K4[3]
+            vis = ((z > 0.05) & (u >= -window_px) & (u < width + window_px)
+                   & (v >= -window_px) & (v < height + window_px))
+            # landmarks already associated in this frame, keypoints still free
+            excl = torch.zeros(N + 1, dtype=torch.bool, device=dev).index_fill_(
+                0, torch.where(ok, sid_p, N), True)[:N]
+            kp_assoc = torch.zeros(M + 1, dtype=torch.bool, device=dev).index_fill_(
+                0, torch.where(ok, safe, drop_m), True)[:M]
+            idx2, _ = match_descriptors_fused(
+                lm_desc, f.desc[k], valid_a=lm_valid & vis & ~excl,
+                valid_b=valid & ~kp_assoc, ratio=0.9, max_dist=search_max)
+            safe2 = torch.clamp(idx2, min=0).to(torch.int64)
+            d_px2 = torch.sum((xy[safe2] - torch.stack([u, v], -1)) ** 2, -1)
+            hit = (idx2 >= 0) & (d_px2 < window_px * window_px)
+            V2 = torch.cat([ok, hit])
+            V2 = V2 & (torch.cumsum(V2.to(torch.int64), 0) <= max_obs)
+            rt2, inl2 = motion_only_ba(
+                K4, extr[None], torch.cat([xyz_p, lm_xyz])[None],
+                torch.cat([xy[safe], xy[safe2]])[None],
+                torch.cat([sig2[safe], sig2[safe2]])[None], V2[None], mcfg)
+            rt2, inl2 = rt2[0], inl2[0]
+            good2 = V2.sum() >= min_track
+            if pnp_guard is not None:
+                good2 = good2 & (torch.linalg.norm(rt2[3:] - extr[3:]) < pnp_guard)
+            use2 = hit.any() & good2 & ((inl2 & V2).sum() >= (ok & inl & good).sum())
+            extr = torch.where(use2, rt2, extr)
+            eff = torch.where(use2, ok & inl2[:M], eff)
+            eff_tlm = hit & inl2[M:] & use2
+        else:
+            hit = torch.zeros(N, dtype=torch.bool, device=dev)
+            idx2 = torch.full((N,), -1, dtype=torch.int32, device=dev)
+            rt2, inl2 = rt, torch.zeros(M + N, dtype=torch.bool, device=dev)
+            use2 = torch.zeros((), dtype=torch.bool, device=dev)
+        # current keypoint j inherits previous keypoint i's landmark iff i
+        # was an effective inlier association (the host's kp_pt write rule).
+        # Row M takes the writes the JAX package drops (`mode="drop"`): an
+        # index out of range raises in PyTorch. The targets of effective
+        # associations are distinct (cross-checked matches), and the
+        # local-map hits only take free keypoints, written second as in JAX
+        tgt = torch.where(eff, safe, drop_m)
+        xyz_n = xyz_p.new_zeros((M + 1, 3)).index_copy_(0, tgt, xyz_p)
+        ok_n = ok_p.new_zeros(M + 1).index_copy_(0, tgt, eff)
+        sid_n = torch.full((M + 1,), N, dtype=torch.int64,
+                           device=dev).index_copy_(0, tgt, sid_p)
+        if tlm:
+            tgt2 = torch.where(eff_tlm, safe2, torch.full_like(safe2, M))
+            xyz_n.index_copy_(0, tgt2, lm_xyz)
+            ok_n.index_copy_(0, tgt2, eff_tlm)
+            sid_n.index_copy_(0, tgt2, lm_ids)
+        xyz_p, ok_p, sid_p = xyz_n[:M], ok_n[:M], sid_n[:M]
+        extr1, extr2 = extr, extr1
+        outs.append((idx, dist, ok, inl, rt, hit, idx2, inl2, rt2, use2))
+    stacked = [torch.stack(o) for o in zip(*outs)]
+    return (f.xy, f.octave, f.sigma2, f.desc, f.valid, *stacked)
+
+
 class BundleAdjustmentPipeline:
     def __init__(self, config: PipelineConfig, K4, width, height, device="cuda"):
         check_config(config)
@@ -274,20 +415,106 @@ class BundleAdjustmentPipeline:
             xyz, okm, _ids = self._prev_track
             f = detect_and_describe(self._gray(gray), self.feat_cfg)
             idx, dist = self._match_prev(f.desc, f.valid, prev)
-            safe = torch.clamp(idx, min=0).long()
-            ok = (idx >= 0) & self._t(okm) & (dist < cfg.assoc_max_dist)
-            ok = ok & (torch.cumsum(ok.to(torch.int64), 0) <= cfg.max_track_obs)
-            mcfg = MotionOnlyConfig(outer_iters=cfg.motion_outer,
-                                    inner_iters=cfg.motion_inner,
-                                    robust=cfg.estimation == "ba")
-            rt, inl = motion_only_ba(
-                self.K4_dev, self._t(np.asarray(pred_extr, np.float32))[None],
-                self._t(xyz)[None], f.xy[safe][None], f.sigma2[safe][None],
-                ok[None], mcfg)
+            ok, _safe, rt, inl = _associate_and_solve(
+                self.K4_dev, self._t(np.asarray(pred_extr, np.float32)),
+                self._t(xyz), self._t(okm), idx, dist, f.xy, f.sigma2,
+                assoc_max=cfg.assoc_max_dist, max_obs=cfg.max_track_obs,
+                mcfg=self._motion_cfg())
             feats = self._features(f)
             return (feats, idx.cpu().numpy(), dist.cpu().numpy(),
-                    ok.cpu().numpy(), rt[0].cpu().numpy().astype(np.float64),
-                    inl[0].cpu().numpy())
+                    ok.cpu().numpy(), rt.cpu().numpy().astype(np.float64),
+                    inl.cpu().numpy())
+
+    def _motion_cfg(self, robust=None):
+        """The pipeline's MotionOnlyConfig; robust (Huber) by default when
+        the estimation is "ba"."""
+        if robust is None:
+            robust = self.cfg.estimation == "ba"
+        return MotionOnlyConfig(outer_iters=self.cfg.motion_outer,
+                                inner_iters=self.cfg.motion_inner, robust=robust)
+
+    def _tlm_snapshot(self):
+        """Batch-start snapshot of the trackable (>= 2-observation) active
+        landmarks for the step's guided local-map pass: (ids sorted, xyz
+        [N, 3] float32, desc [N, 8] uint32, valid [N]). Frozen within a
+        batch: the map changes only at keyframes, which end the batch."""
+        m = self.map
+        cand = m.active_points()
+        if len(cand):
+            cand = np.sort(cand[m.point_obs_counts(cand) >= 2])
+        cand = cand.astype(np.int64)
+        return (cand, m.pt_pos[cand].astype(np.float32), m.pt_desc[cand],
+                np.ones(len(cand), bool))
+
+    def _batch_inputs(self, grays):
+        """The host half of `_track_batch` up to the upload: (snapshot ids,
+        the positional inputs of `track_batch_step` on the device, its
+        keyword arguments)."""
+        cfg = self.cfg
+        xyz, okm, kp_ptid = self._prev_track
+        use_tlm = cfg.track_local_map and cfg.estimation in ("ba", "pnp")
+        if use_tlm:
+            snap_ids, lm_xyz, lm_desc, lm_valid = self._tlm_snapshot()
+        else:
+            snap_ids, lm_xyz = np.zeros(0, np.int64), np.zeros((0, 3), np.float32)
+            lm_desc = np.zeros((0, self.map.desc_words), np.uint32)
+            lm_valid = np.zeros(0, bool)
+        # each previous keypoint's index in the snapshot (N: none)
+        sid = np.full(len(kp_ptid), len(snap_ids), np.int64)
+        has = kp_ptid >= 0
+        if use_tlm:
+            sid[has] = np.searchsorted(snap_ids, kp_ptid[has])
+        desc_p, valid_p = self._dev_desc(self.last_feats)
+        gstack = np.stack([np.asarray(g, np.float32) for g in grays])
+        args = (self._t(gstack), desc_p, valid_p, self._t(xyz), self._t(okm),
+                self._t(sid), self._t(lm_xyz), self._t(lm_desc), self._t(lm_valid),
+                self._t(np.asarray(self.last_extr, np.float32)),
+                self._t(np.asarray(self.prev_extr, np.float32)), self.K4_dev)
+        kw = dict(feat_cfg=self.feat_cfg, ratio=cfg.match_ratio,
+                  assoc_max=cfg.assoc_max_dist,
+                  mcfg=self._motion_cfg(),
+                  max_obs=cfg.max_track_obs, min_track=cfg.min_track_points,
+                  pnp_guard=(cfg.pnp_translation_guard
+                             if cfg.estimation == "pnp" else None),
+                  tlm=use_tlm, window_px=float(cfg.track_window_px),
+                  search_max=float(cfg.search_max_dist), width=self.width,
+                  height=self.height)
+        return snap_ids, args, kw
+
+    def _track_batch(self, grays):
+        """Run the tracking microbatch over `grays`: one upload, the step
+        (`track_batch_step`), one fetch. Returns one precomputed tuple a
+        frame for `process_frame`: (feats, matches, dists, assoc_ok, rt6,
+        inliers, tlm_pre), tlm_pre None or a dict of the local-map pass's
+        snapshot hits and re-solved pose. The batch runs at its own length:
+        the JAX package pads it to `track_batch` for its compiled shape,
+        and a padded frame, coming last in a causal loop, changes none of
+        the others."""
+        with self.timers.phase("frontend"):
+            snap_ids, args, kw = self._batch_inputs(grays)
+            out = track_batch_step(*args, **kw)
+            (xy, octv, sig2, desc, valid, idx, dist, ok, inl, rt, hit, idx2,
+             inl2, rt2, use2) = (t.cpu().numpy() for t in out)
+        desc_dev, valid_dev = out[3], out[4]
+        pre = []
+        for k in range(len(grays)):
+            feats = FrameFeatures(xy=xy[k], octave=octv[k], sigma2=sig2[k],
+                                  desc=desc[k].view(np.uint32), valid=valid[k],
+                                  desc_dev=desc_dev[k], valid_dev=valid_dev[k])
+            tlm_pre = None
+            if kw["tlm"]:
+                tlm_pre = {"snap_ids": snap_ids, "hit": hit[k], "kp": idx2[k],
+                           "inl2": inl2[k], "rt2": rt2[k].astype(np.float64),
+                           "use2": bool(use2[k])}
+            pre.append((feats, idx[k], dist[k], ok[k], rt[k].astype(np.float64),
+                        inl[k], tlm_pre))
+        return pre
+
+    def _can_batch_track(self):
+        return (self.cfg.track_batch > 1 and self.initialized
+                and self.cfg.fused_tracking
+                and self.cfg.estimation in ("ba", "pnp")
+                and self._prev_track is not None)
 
     def _capture_track_state(self, slot, feats):
         """Per-keypoint landmark state of the new last frame for the next
@@ -437,10 +664,9 @@ class BundleAdjustmentPipeline:
         return self._solve_ba(snap, max_iters or self.cfg.kf_ba_iters)
 
     def _motion_only_batch(self, E0, P, U, S, V, robust=True):
-        cfg = MotionOnlyConfig(outer_iters=self.cfg.motion_outer,
-                               inner_iters=self.cfg.motion_inner, robust=robust)
         rt, inl = motion_only_ba(self.K4_dev, self._t(E0), self._t(P),
-                                 self._t(U), self._t(S), self._t(V), cfg)
+                                 self._t(U), self._t(S), self._t(V),
+                                 self._motion_cfg(robust))
         return rt.cpu().numpy().astype(np.float64), inl.cpu().numpy()
 
     def motion_only(self, extr0, pts3d, uv, sigma2, robust=True):
@@ -1080,40 +1306,108 @@ class BundleAdjustmentPipeline:
 
     def process_frames(self, frames, timings=None, max_frames=None,
                        prefeats=None):
-        """Process an iterable of FrameData one frame at a time, stopping
-        after "tracking-lost"; `prefeats` (from `predetect_features`) gives
-        each frame's features, so its tracking only matches and estimates
-        (the split path). Returns the per-frame statuses; `timings`, if
-        given, receives each frame's wall time. (The JAX package's
-        microbatch branch, `track_batch > 1`, is not ported; `max_frames`,
-        which only that branch's callers set, is kept so that the signature
-        matches the JAX package's.)"""
-        import time
+        """Process an iterable of FrameData, stopping after
+        "tracking-lost"; returns the per-frame statuses.
 
+        `prefeats` (from `predetect_features`) gives each frame's features,
+        so its tracking only matches and estimates (the split path), one
+        frame at a time. Otherwise, once tracking is steady
+        (`_can_batch_track`), up to `track_batch` consecutive frames run as
+        one microbatch (`_track_batch`) and each frame's host bookkeeping
+        replays through `process_frame` with the batch's results; the
+        frames after a keyframe or a tracking loss inside a batch are
+        discarded and re-run, because the keyframe changed the map that the
+        batch assumed frozen. `timings`, if given, receives each processed
+        frame's wall time, a batch's time shared among the frames it
+        delivered; `max_frames` caps the frames drawn from `frames`."""
+        import time
+        from collections import deque
+
+        if prefeats is not None:
+            statuses = []
+            for f, pf in zip(frames, prefeats):
+                if max_frames is not None and len(statuses) >= max_frames:
+                    break
+                t0 = time.perf_counter()
+                s = self.process_frame(f, prefeats=pf)
+                if timings is not None:
+                    timings.append(time.perf_counter() - t0)
+                statuses.append(s)
+                if s == "tracking-lost":
+                    break
+            return statuses
+
+        it = iter(frames)
+        pending: deque = deque()
+        drawn = 0
+        exhausted = False
+
+        def refill(n):
+            nonlocal drawn, exhausted
+            while (not exhausted and len(pending) < n
+                   and (max_frames is None or drawn < max_frames)):
+                try:
+                    pending.append(next(it))
+                    drawn += 1
+                except StopIteration:
+                    exhausted = True
+
+        B = max(int(self.cfg.track_batch), 1)
         statuses = []
-        pfs = iter(prefeats) if prefeats is not None else None
-        for f in frames:
-            if max_frames is not None and len(statuses) >= max_frames:
+        while True:
+            refill(B if self._can_batch_track() else 1)
+            if not pending:
                 break
+            if not self._can_batch_track():
+                t0 = time.perf_counter()
+                s = self.process_frame(pending.popleft())
+                if timings is not None:
+                    timings.append(time.perf_counter() - t0)
+                statuses.append(s)
+                if s == "tracking-lost":
+                    break
+                continue
+            chunk = [pending.popleft() for _ in range(min(B, len(pending)))]
             t0 = time.perf_counter()
-            s = self.process_frame(f, prefeats=None if pfs is None else next(pfs))
+            pre = self._track_batch([f.gray for f in chunk])
+            t_dev = time.perf_counter() - t0
+            consumed = 0
+            for k, f in enumerate(chunk):
+                t1 = time.perf_counter()
+                s = self.process_frame(f, precomputed=pre[k])
+                statuses.append(s)
+                consumed += 1
+                if timings is not None:
+                    timings.append(time.perf_counter() - t1)
+                if s != "tracked":
+                    break
+            # the frames after the first that was not "tracked" run again
+            for f in reversed(chunk[consumed:]):
+                pending.appendleft(f)
             if timings is not None:
-                timings.append(time.perf_counter() - t0)
-            statuses.append(s)
-            if s == "tracking-lost":
+                for j in range(consumed):
+                    timings[-1 - j] += t_dev / consumed
+            if statuses[-1] == "tracking-lost":
                 break
         return statuses
 
-    def process_frame(self, frame, prefeats=None):
-        """Process one FrameData. Returns a status string. `prefeats` (from
+    def process_frame(self, frame, precomputed=None, prefeats=None):
+        """Process one FrameData. Returns a status string. `precomputed`
+        (from `_track_batch`) carries the frame's results of the tracking
+        microbatch: (feats, matches, dists, assoc_ok, rt6, inliers,
+        tlm_pre), so only the host bookkeeping runs. `prefeats` (from
         `predetect_features`) carries the frame's features: it is matched
         against the previous frame through kernel A and tracked by the split
         path."""
         cfg = self.cfg
         m = self.map
         prev = self.last_feats if self.initialized else self.ref_feats
-        fused_rt = fused_inl = assoc_ok = pred_extr = None
-        if prefeats is not None:
+        fused_rt = fused_inl = assoc_ok = pred_extr = tlm_pre = None
+        if precomputed is not None:
+            pred_extr = self._predict_extr()
+            (feats, matches, dists, assoc_ok, fused_rt, fused_inl,
+             tlm_pre) = precomputed
+        elif prefeats is not None:
             feats = prefeats
             matches = dists = None
             if prev is not None:
@@ -1205,12 +1499,26 @@ class BundleAdjustmentPipeline:
                 extr, inl = pred_extr, np.zeros(len(assoc_pt), bool)
             else:
                 extr, inl = self._pnp_guard(fused_rt, fused_inl[ok_idx], pred_extr)
+            if (tlm_pre is not None and tlm_pre["use2"]
+                    and len(assoc_pt) >= cfg.min_track_points):
+                # the microbatch's local-map pass won: adopt its enlarged
+                # association set and re-solved pose
+                hit = np.nonzero(tlm_pre["hit"])[0]
+                n_kp = len(feats.desc)
+                assoc_pt = np.concatenate([assoc_pt, tlm_pre["snap_ids"][hit]])
+                assoc_kp = np.concatenate([assoc_kp,
+                                           tlm_pre["kp"][hit].astype(np.int64)])
+                inl = np.concatenate([tlm_pre["inl2"][:n_kp][ok_idx],
+                                      tlm_pre["inl2"][n_kp:][hit]])
+                extr = tlm_pre["rt2"]
         else:
             extr, inl = self._estimate_pose(feats, assoc_pt, assoc_kp, pred_extr,
                                             matches)
 
-        # guided local-map second pass, then re-estimate
-        if cfg.track_local_map and cfg.estimation in ("ba", "pnp"):
+        # guided local-map second pass, then re-estimate (the microbatch
+        # ran it on the device: tlm_pre above)
+        if (cfg.track_local_map and cfg.estimation in ("ba", "pnp")
+                and precomputed is None):
             assoc_pt2, assoc_kp2 = self._track_local_map(feats, extr, assoc_pt,
                                                          assoc_kp)
             if len(assoc_pt2) > len(assoc_pt):
@@ -1508,7 +1816,10 @@ class BundleAdjustmentPipeline:
 
         predetect=True: detect every frame first with the data-parallel
         batched frontend (the frame axis over the ranks of `group` when
-        given), then track each frame by matching and estimation only."""
+        given), then track each frame by matching and estimation only.
+        Otherwise `track_batch > 1` (the default) tracks in microbatches
+        (`process_frames`), unless the run is verbose, which prints each
+        frame's status as it is processed."""
         if predetect:
             frames = []
             for i, frame in enumerate(dataset):
@@ -1520,6 +1831,8 @@ class BundleAdjustmentPipeline:
             if self.cfg.verbose:
                 for i, status in enumerate(statuses):
                     print(f"[{i:4d}] {status}")
+        elif self.cfg.track_batch > 1 and not self.cfg.verbose:
+            self.process_frames(dataset, max_frames=self.cfg.max_frames)
         else:
             for i, frame in enumerate(dataset):
                 if i >= self.cfg.max_frames:

@@ -12,7 +12,9 @@ script exits non-zero without printing the final line:
    for sm_90a, one nvcc process per source, all started together, and
    prints the build seconds;
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the shapes the main paths give it (kernel A bit-identical;
+   the card, at the shapes the main paths give it (kernel A bit-identical,
+   also at the tracking microbatch's pairwise shape, 8 query sets of 1,000
+   descriptors against 8 train sets;
    B, C, K5 and D to the stated tolerances; E, the blocked Cholesky solve,
    on the S and b that the Schur step produces at each shape, against its
    plain version with the kernel's panels and with the reference's, and
@@ -58,10 +60,20 @@ script exits non-zero without printing the final line:
    8-point and 4-point systems, the [C, N, 4, 4] triangulations of 4 and 8
    candidate motions) and one whole `recover_pose_two_view`, timed on the
    card and on the CPU at 800 pairs, and the two held against each other;
-8. pipeline: writes a TUM-format rendered sequence (640x480, 40 frames) and
+8. pipeline: writes a TUM-format rendered sequence (640x480, the first 40
+   frames of a 48-frame render, the other 8 kept for the microbatch step) and
    runs the port's CLI on it with default flags (gtdepth, ba, local BA,
-   3x100 final BA, 1000 features, 8 levels); checks ATE and the output
-   files; then times the kernels at the pipeline's own final-BA shape;
+   3x100 final BA, 1000 features, 8 levels, tracking in microbatches of 8);
+   checks ATE and the output files; then times the kernels at the
+   pipeline's own final-BA shape (after phase 21). Then the same run with
+   `--track-batch 1` (one frame at a time): ATE < 0.05 m, the batched
+   run's within 0.01 m of it, both frames/s; then "track_batch_step": one
+   microbatch of the sequence's next 8 frames on the default run's map
+   through `track_batch_step`, under `torch.cuda.set_sync_debug_mode(
+   "error")` (no host sync between upload and fetch), kernel A launched
+   1 + 8 times, its outputs bit-identical to the same step with kernel A's
+   plain version, with its ms a batch and a frame and a profiled step's
+   device ms, kernel launches and busy share;
 9. sharded pipeline: the same sequence through the CLI with `--global-ba
    sharded`, inside an NCCL process group of world size 1 (file rendezvous
    in the temporary directory); ATE < 0.05 m and within 0.001 m of phase 6,
@@ -125,8 +137,8 @@ script exits non-zero without printing the final line:
    and, beside it, one write of their materialised distance blocks over
    3.35 TB/s;
 19. protocol runner: `bench/protocols.config1` at full size (50 frames
-   640x480, 1000 features, 8 levels) on the card, its JSON line, ATE < 0.05
-   m;
+   640x480, 1000 features, 8 levels, `track_batch=8`) on the card, its JSON
+   line, ATE < 0.05 m;
 20. fresh-process resume: the smoke's 40-frame sequence cut at frame 20 by
    a checkpoint, resumed by the protocol runner's `--resume-worker` in a
    child process on the card against the uninterrupted run here: |ATE
@@ -138,9 +150,9 @@ script exits non-zero without printing the final line:
    least 10 times; A in every monocular run, B and C in the dense standard
    run; B in the dense PCG solve; A and B in the PCG pipeline and the
    depth-seeded run; A in the windowed run; A, B and C in the predetect and
-   output runs; A, B and C in the config-1 protocol run and in the resume
-   phase's run here). Each count is reset just before that run and read
-   just after it.
+   output runs; A, B and C in the config-1 protocol run, in the resume
+   phase's run here and in the `--track-batch 1` run; A in the microbatch
+   step). Each count is reset just before that run and read just after it.
 
 Then a `{"kernels": [...]}` line and, last, `{"ok": true, "device": ...}`.
 Needs one CUDA device; exits non-zero without one.
@@ -195,7 +207,9 @@ ALSO_LAUNCHED = {"pipeline_sharded": _DENSE,
                  "pipeline_predetect": ("hamming_top2", *_DENSE),
                  "pipeline_outputs": ("hamming_top2", *_DENSE),
                  "protocol_config1": ("hamming_top2", *_DENSE),
-                 "protocol_resume_worker": ("hamming_top2", *_DENSE)}
+                 "protocol_resume_worker": ("hamming_top2", *_DENSE),
+                 "pipeline_track_batch_1": ("hamming_top2", *_DENSE),
+                 "track_batch_step": ("hamming_top2",)}
 # the least number of launches a path's run must show (default 1)
 MIN_LAUNCHES = {"chol_solve": 10}
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
@@ -207,6 +221,8 @@ F32_OPS_S = 67e12
 # added, the -2 scale and one compare
 NN_PAIR_OPS = 9
 RTOL, ATOL = 2e-4, 2e-3  # block outputs (the kernels sum in other orders)
+# frames a tracking microbatch of the default configuration takes
+TRACK_BATCH = 8
 COST_RTOL = 1e-5
 
 
@@ -659,6 +675,7 @@ def _hamming_inputs(rng, B, M, device):
 def phase_hamming(rng, device, results):
     import torch
 
+    from bundleadjustment_tpu_torch.ops.features import FeatureConfig, level_allocations
     from bundleadjustment_tpu_torch.ops.hamming import (
         hamming_plan,
         hamming_top2,
@@ -666,17 +683,26 @@ def phase_hamming(rng, device, results):
     )
 
     rows = []
-    for B in (1, 25):
-        q, t, v = _hamming_inputs(rng, B, 1000, device)
+    # (B, M, pairwise): one query set against B train sets, and the tracking
+    # microbatch's B query sets against B train sets at its main-path shape
+    # (track_batch 8, the keypoints a frame of the default detector)
+    n_kp = sum(level_allocations(FeatureConfig()))
+    for B, M, pairwise in ((1, 1000, False), (25, 1000, False),
+                           (TRACK_BATCH, n_kp, True)):
+        q, t, v = _hamming_inputs(rng, B, M, device)
+        if pairwise:
+            q = torch.cat([q, t[:-1]]).contiguous()
         got = hamming_top2(q, t, v)
         ref = hamming_top2_plain(q, t, v)
         torch.cuda.synchronize()
         for g, r, n in zip(got, ref, ("best", "second", "idx")):
             if not torch.equal(g, r):
-                raise AssertionError(f"hamming_top2 B={B}: {n} not bit-identical")
-        plan = hamming_plan(B, 1000, 1000, torch.cuda.get_device_properties(0)
+                raise AssertionError(f"hamming_top2 B={B} pairwise={pairwise}: {n} "
+                                     "not bit-identical")
+        plan = hamming_plan(B, M, M, torch.cuda.get_device_properties(0)
                             .multi_processor_count)
-        rows.append({"batch": B, "m1": 1000, "m2": 1000, "bit_identical": True,
+        rows.append({"batch": B, "m1": M, "m2": M, "pairwise": pairwise,
+                     "bit_identical": True,
                      **time_pair(lambda: hamming_top2(q, t, v),
                                  lambda: hamming_top2_plain(q, t, v), reps=KERNEL_REPS),
                      **hamming_bound(q, t, v, got), "library_ms": None,
@@ -1422,9 +1448,11 @@ ATE_JAX_CPU_M = 0.0374
 ATE_STANDARD_BOUND_M = 0.075
 
 
-def write_sequence(root, n_frames, **render):
-    """Render a sequence (default: the config-1-shaped one) and write it in
-    TUM format with an intrinsics.json sidecar. Returns (frames, K4)."""
+def write_sequence(root, n_frames, extra=0, **render):
+    """Render a sequence of n_frames + extra frames (default: the
+    config-1-shaped one; the scene's extent follows the frame count) and
+    write its first n_frames in TUM format with an intrinsics.json sidecar.
+    Returns (frames, K4), frames holding the `extra` frames too."""
     from bundleadjustment_tpu_torch.data.synthetic import (
         render_layered_scene,
         write_tum_format,
@@ -1432,9 +1460,9 @@ def write_sequence(root, n_frames, **render):
 
     render = render or dict(motion_step=0.03, seed=11)
     frames, K4 = render_layered_scene(
-        n_frames=n_frames, width=640, height=480, fx=525.0, fy=525.0,
+        n_frames=n_frames + extra, width=640, height=480, fx=525.0, fy=525.0,
         trajectory="forward", **render)
-    write_tum_format(root, frames)
+    write_tum_format(root, frames[:n_frames])
     with open(os.path.join(root, "intrinsics.json"), "w") as f:
         json.dump({"fx": float(K4[0]), "fy": float(K4[1]), "cx": float(K4[2]),
                    "cy": float(K4[3]), "width": 640, "height": 480}, f)
@@ -1498,6 +1526,91 @@ def phase_pipeline(device, data, n_frames, phase="pipeline", flags=(),
     if not all(outputs_exist):
         raise AssertionError(f"{phase} output files missing")
     return pipe, res, counts
+
+
+def phase_pipeline_per_frame(device, data, n_frames, res_default, runs):
+    """The default CLI run again with `--track-batch 1` (one frame at a
+    time): ATE < 0.05 m, and the default microbatched run's ATE within
+    0.01 m of it; both runs' frames/s."""
+    _, res, runs["pipeline_track_batch_1"] = phase_pipeline(
+        device, data, n_frames, "pipeline_track_batch_1", ("--track-batch", "1"))
+    diff = abs(res_default["ate_rmse"] - res["ate_rmse"])
+    emit({"phase": "track_batch_vs_per_frame", "track_batch": 8,
+          "frames_per_s_batched": res_default["frames"] / res_default["wall_s"],
+          "frames_per_s_per_frame": res["frames"] / res["wall_s"],
+          "ate_batched_m": res_default["ate_rmse"], "ate_per_frame_m": res["ate_rmse"],
+          "ate_abs_diff_m": diff, "bound_m": 0.01,
+          "keyframes_batched": res_default["keyframes"],
+          "keyframes_per_frame": res["keyframes"],
+          "frontend_ms_batched": res_default["phase_times"].get("frontend"),
+          "frontend_ms_per_frame": res["phase_times"].get("frontend")})
+    if not diff < 0.01:
+        raise AssertionError(f"batched ATE {res_default['ate_rmse']} m against "
+                             f"{res['ate_rmse']} m one frame at a time")
+
+
+def phase_track_batch_step(pipe, device, next_frames, runs):
+    """One microbatch of TRACK_BATCH frames at the config-1 width (640x480,
+    1000 features, 8 levels) on the default run's map: the next frames of
+    its sequence (`next_frames`) through `track_batch_step` from
+    `_batch_inputs`. The step
+    runs under `torch.cuda.set_sync_debug_mode("error")` (no host sync
+    between the upload and the fetch), launches kernel A 1 + B times (the B
+    frame-to-frame matches in one launch, then the local-map match of each
+    frame), and its 15 outputs equal those of the same step with kernel A's
+    plain version on the card, bit for bit. Prints the snapshot's size,
+    the step's ms a batch and a frame (CUDA events), and a profiled step's
+    wall and device ms, kernel launches and busy share
+    (`device_breakdown`)."""
+    import numpy as np
+    import torch
+
+    from bundleadjustment_tpu_torch import kernels
+    from bundleadjustment_tpu_torch.ops import hamming, matching
+    from bundleadjustment_tpu_torch.pipeline.driver import track_batch_step
+
+    grays = [f["gray"] for f in next_frames]
+    if len(grays) != TRACK_BATCH or not pipe._can_batch_track():
+        raise AssertionError("the default run's pipeline cannot take a microbatch")
+    snap_ids, args, kw = pipe._batch_inputs(grays)
+    step = lambda: track_batch_step(*args, **kw)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    runs["track_batch_step"] = kernels.launch_counts()
+    launches = runs["track_batch_step"]["hamming_top2"]
+    matching.hamming_top2 = hamming.hamming_top2_plain
+    try:
+        ref = step()
+        plain_ms = cuda_time(step, reps=1, warmup=0)
+    finally:
+        matching.hamming_top2 = hamming.hamming_top2
+    names = ("xy", "octave", "sigma2", "desc", "valid", "idx", "dist", "ok", "inl",
+             "rt", "hit", "idx2", "inl2", "rt2", "use2")
+    differ = [n for n, g, r in zip(names, got, ref) if not torch.equal(g, r)]
+    ms = cuda_time(step, reps=2, warmup=0)
+    prof = device_breakdown(step, top=5)
+    B, M, N = len(grays), int(args[1].shape[0]), len(snap_ids)
+    emit({"phase": "track_batch_step", "batch": B, "keypoints": M,
+          "snapshot_landmarks": N, "first_pass_shape": [B, M, B, M],
+          "local_map_shape": [N, M], "sync_debug": "error",
+          "kernel_a_launches": launches, "kernel_a_launches_expected": 1 + B,
+          "outputs_differ_from_plain": differ,
+          "hits": got[10].sum(1).tolist(), "use2": got[14].tolist(),
+          "tracked_ok": got[7].sum(1).tolist(), "ms": ms, "plain_ms": plain_ms,
+          "ms_per_frame": ms / B,
+          # one profiled step: every kernel the card ran, and its busy share
+          "profile": {**prof, "launches_per_frame": prof["launches"] / B,
+                      "busy_share": prof["device_ms"] / prof["wall_ms"]}})
+    if launches != 1 + B or differ or not np.isfinite(got[9].cpu().numpy()).all():
+        raise AssertionError(f"track_batch_step: {launches} kernel A launches "
+                             f"(want {1 + B}), outputs that differ: {differ}")
 
 
 def phase_pipeline_sharded(device, data, n_frames, ate_default):
@@ -1975,13 +2088,14 @@ def phase_pipeline_shapes(pipe, results):
 def phase_protocol_config1(device):
     """The port's protocol runner at full size: `bench/protocols.config1`
     (50 frames 640x480 forward, seed 11, 1000 features, 8 levels, no local
-    BA, the 3 x 100 final BA) on the card; its JSON line, ATE < 0.05 m (the
-    JAX package's protocol bound). Returns the run's launch counts."""
+    BA, the 3 x 100 final BA, microbatches of TRACK_BATCH frames) on the
+    card; its JSON line, ATE < 0.05 m (the JAX package's protocol bound).
+    Returns the run's launch counts."""
     from bundleadjustment_tpu_torch.bench import protocols
 
     # run_protocol zeroes the launch counts just before the frames and
     # reads them just after finalize
-    out = protocols.config1(device=device)
+    out = protocols.config1(track_batch=TRACK_BATCH, device=device)
     emit({"phase": "protocol_config1", **out, "ate_bound_m": 0.05})
     if not out["ate_rmse_m"] < 0.05:
         raise AssertionError(f"config 1: ATE {out['ate_rmse_m']} m >= 0.05")
@@ -2073,8 +2187,11 @@ def main():
     n_frames = 40
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "seq")
-        frames, K4 = write_sequence(data, n_frames)
+        frames, K4 = write_sequence(data, n_frames, extra=TRACK_BATCH)
+        frames, next_frames = frames[:n_frames], frames[n_frames:]
         pipe, res, runs["pipeline"] = phase_pipeline(device, data, n_frames)
+        phase_pipeline_per_frame(device, data, n_frames, res, runs)
+        phase_track_batch_step(pipe, device, next_frames, runs)
         runs["pipeline_sharded"] = phase_pipeline_sharded(
             device, data, n_frames, res["ate_rmse"])
         phase_pipeline_monocular(device, data, tmp, runs)

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Where the PyTorch/CUDA port's pipeline spends its time on one NVIDIA GPU.
 
-    python3 profile_port.py [--frames 40]
+    python3 profile_port.py [--frames 40] [--track-batch 8]
 
 Runs the pipeline of chip_smoke.py (a rendered 640x480 TUM-format sequence,
 CLI defaults: gtdepth, ba, local BA, 3x100 final BA, 1000 features, 8
-levels) and prints one JSON object per line:
+levels, tracking microbatches of `--track-batch` frames, 1 for one frame at
+a time) and prints one JSON object per line:
 
 1. `{"run": "cold" | "warm", ...}`: two unprofiled CLI runs in this process,
    host wall seconds (ending in torch.cuda.synchronize()), frames/s, ATE,
    launch counts of the hand-written kernels and the PhaseTimer phases;
-2. a third run, frame by frame, under torch.profiler in two windows: the
-   tracking frames [n/2, 3n/4) and the frames [3n/4, n) plus `finalize`.
+2. a third run, through `process_frames` as the CLI runs it, under
+   torch.profiler in two windows: the tracking frames [n/2, 3n/4) and the
+   frames [3n/4, n) plus `finalize`.
    For each window (`{"window": ...}`): wall seconds (the profiler's own
    overhead included), device busy seconds (the durations of the kernels
    the card ran, summed), busy share, kernel launches in all and per frame,
@@ -83,6 +85,7 @@ def report_window(name, prof, wall, n_frames):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--frames", type=int, default=40)
+    p.add_argument("--track-batch", type=int, default=8)
     args = p.parse_args(argv)
 
     import torch
@@ -103,7 +106,8 @@ def main(argv=None):
         chip_smoke.write_sequence(data, n)
         argv = ["--dataset-name", "synthetic", "--dataset-path", data,
                 "--output-path", os.path.join(tmp, "out"), "--frames", str(n),
-                "--local-ba", "--trajectory", "--device", "cuda"]
+                "--local-ba", "--trajectory", "--device", "cuda",
+                "--track-batch", str(args.track_batch)]
         for run in ("cold", "warm"):
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
@@ -121,14 +125,12 @@ def main(argv=None):
                                         ds.width, ds.height, device="cuda")
         frames = list(ds)
         a, b = n // 2, 3 * n // 4
-        for f in frames[:a]:
-            pipe.process_frame(f)
+        pipe.process_frames(frames[:a])
         sync()
         windows = (
-            (f"frames_{a}_{b - 1}", b - a,
-             lambda: [pipe.process_frame(f) for f in frames[a:b]]),
+            (f"frames_{a}_{b - 1}", b - a, lambda: pipe.process_frames(frames[a:b])),
             (f"frames_{b}_{n - 1}_and_finalize", n - b,
-             lambda: ([pipe.process_frame(f) for f in frames[b:]], pipe.finalize())),
+             lambda: (pipe.process_frames(frames[b:]), pipe.finalize())),
         )
         for name, n_frames, fn in windows:
             with profile(activities=[ProfilerActivity.CPU,

@@ -93,12 +93,12 @@ def test_pipeline_matches_jax(case):
 
 
 def test_default_tracking_matches_jax_default():
-    """The port's default run (one frame at a time) against the JAX
-    pipeline's default: `process_frames`, as its CLI drives it, at
-    track_batch=8 with the local-map pass on, whose batch-start landmark
-    snapshot sees descriptors up to 8 frames stale. 16 frames, so more than
-    one batch runs. Bounds: those the JAX package holds between its own
-    batched and per-frame paths (tests/test_pipeline.py,
+    """The port's default run against the JAX pipeline's default, both
+    through `process_frames` as their CLIs drive it: microbatches of
+    track_batch=8 with the local-map pass on, matching against a landmark
+    snapshot frozen at the start of each batch. 16 frames, so more than one
+    batch runs. Bounds: those the JAX package holds between its own batched
+    and per-frame paths (tests/test_pipeline.py,
     test_batched_tlm_matches_per_frame)."""
     frames, ds, K4 = _frames(16, 0.05)
     base = dict(init_type="gtdepth", estimation="ba", n_features=200, n_levels=3,
@@ -108,7 +108,12 @@ def test_default_tracking_matches_jax_default():
     ref = _run(JaxPipeline(jax_cfg, K4, 160, 120), ds, frames, batched=True)
     cfg = PipelineConfig(**base)
     assert cfg.track_batch == 8 and cfg.track_local_map
-    got = _run(BundleAdjustmentPipeline(cfg, K4, 160, 120, device="cpu"), ds, frames)
+    pipe = BundleAdjustmentPipeline(cfg, K4, 160, 120, device="cpu")
+    batches = []
+    track_batch = pipe._track_batch
+    pipe._track_batch = lambda grays: batches.append(len(grays)) or track_batch(grays)
+    got = _run(pipe, ds, frames, batched=True)
+    assert batches and max(batches) == 8, batches
     assert got[0] == ref[0]
     assert got[1] == ref[1]
     assert abs(got[2] - ref[2]) <= max(0.02 * ref[2], 2), (got[2], ref[2])
@@ -246,7 +251,7 @@ def test_unknown_modes_raise(field, value):
 
 
 @pytest.mark.parametrize("flags", [["--matcher", "xla"], ["--matcher", "pallas"],
-                                   ["--no-warmup"], ["--track-batch", "1"]])
+                                   ["--no-warmup"]])
 def test_no_op_cli_flags_say_so(flags):
     """Flags that tuned the JAX package's dispatch parse, leave the ported
     configuration valid, and their --help says they change nothing."""
@@ -254,6 +259,22 @@ def test_no_op_cli_flags_say_so(flags):
     cli.config_from_args(parser.parse_args(flags))
     action = next(a for a in parser._actions if flags[0] in a.option_strings)
     assert "changes nothing in the port" in action.help
+
+
+@pytest.mark.parametrize("track_batch", [1, 8])
+def test_track_batch_flag_selects_the_path(track_batch, tmp_path, monkeypatch):
+    """`--track-batch` reaches the configuration and selects the path:
+    1 tracks one frame at a time (no microbatch), 8 (the default) takes the
+    4 tracked frames of the 6-frame run as one microbatch."""
+    args = cli.build_parser().parse_args(["--track-batch", str(track_batch)])
+    assert cli.config_from_args(args).track_batch == track_batch
+    batches = []
+    track = BundleAdjustmentPipeline._track_batch
+    monkeypatch.setattr(BundleAdjustmentPipeline, "_track_batch",
+                        lambda self, grays: batches.append(len(grays)) or track(self, grays))
+    res, _ = _cli_run(tmp_path, "--track-batch", str(track_batch))
+    assert res["frames"] == 6 and res["ate_rmse"] < 0.06
+    assert batches == ([] if track_batch == 1 else [4]), batches
 
 
 def test_cuda_device_without_card_raises():

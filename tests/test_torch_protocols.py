@@ -58,7 +58,7 @@ def test_run_protocol_matches_jax():
     jpipe = JaxPipeline(jcfg, K4, 160, 120)
     jstat = _record_statuses(jpipe)
     jpipe, jres, jfps, _, _ = jproto.run_protocol(frames, K4, jcfg, 160, 120, pipe=jpipe)
-    cfg = PipelineConfig(**base)
+    cfg = PipelineConfig(track_batch=1, **base)
     pipe = tproto.make_pipeline(cfg, K4, 160, 120, "cpu")
     stat = _record_statuses(pipe)
     pipe, res, fps, wall, launches = tproto.run_protocol(frames, K4, cfg, 160, 120,
@@ -93,7 +93,7 @@ def test_config1_line_has_the_jax_keys():
     assert out["frames"] == 12 and out["keyframes"] >= 2
     assert out["ate_rmse_m"] < 0.1 and out["steady_fps"] > 0
     assert "detect" in out["phase_times"]
-    # a requested microbatch is reported as what ran: one frame at a time
+    # a requested microbatch runs and is named as the JAX runner names it
     tb = tproto.config1(track_batch=8, **SMALL)
-    assert tb["metric"] == "config1_fr1_shaped" and tb["frames_tracked_at_once"] == 1
+    assert tb["metric"] == "config1_fr1_shaped_tb8" and tb["frames_tracked_at_once"] == 8
     assert tb["track_batch"] == 8
