@@ -343,6 +343,13 @@ def level_allocations(cfg: FeatureConfig):
     return [max(int(a), 8) for a in alloc]
 
 
+def level_shape(H, W, lvl, cfg: FeatureConfig):
+    """(height, width) of pyramid level `lvl` of an H x W frame."""
+    scale = cfg.scale_factor**lvl
+    return (max(int(round(H / scale)), 2 * cfg.border + 8),
+            max(int(round(W / scale)), 2 * cfg.border + 8))
+
+
 def detect_batch(images, cfg: FeatureConfig = FeatureConfig()):
     """Full pyramid detection on a batch of grayscale frames [B, H, W] in
     [0, 1] (float32 tensor on the device to run on), in one pass over the
@@ -355,9 +362,7 @@ def detect_batch(images, cfg: FeatureConfig = FeatureConfig()):
     for lvl in range(cfg.n_levels):
         scale = cfg.scale_factor**lvl
         if lvl > 0:
-            h_l = max(int(round(H / scale)), 2 * cfg.border + 8)
-            w_l = max(int(round(W / scale)), 2 * cfg.border + 8)
-            img_l = _resize_linear(images, h_l, w_l)
+            img_l = _resize_linear(images, *level_shape(H, W, lvl, cfg))
         ys, xs, resp, ang, desc, valid = _detect_level(img_l, allocs[lvl], cfg)
         n = allocs[lvl]
         outs.append((

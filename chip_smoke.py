@@ -152,7 +152,16 @@ script exits non-zero without printing the final line:
    depth-seeded run; A in the windowed run; A, B and C in the predetect and
    output runs; A, B and C in the config-1 protocol run, in the resume
    phase's run here and in the `--track-batch 1` run; A in the microbatch
-   step). Each count is reset just before that run and read just after it.
+   step). Each count is reset just before that run and read just after it;
+22. frontend stages: `bench/frontend.py` (the root-level
+   `profile_frontend.py`'s counterpart) at 640x480, 1,000 features, 8
+   levels, 12 frames: detection's ms a frame sustained and with a
+   synchronize a call, then its eight stages, each with its kernel ms and
+   launches a call (one "frontend_stages" line a measurement); then each
+   stage on the card against the CPU on one frame, with the tolerances of
+   tests/test_torch_frontend_stages.py ("frontend_stages_card_vs_cpu").
+   It launches no hand-written kernel (detection has none) and runs after
+   phase 20; phase 21's check comes last.
 
 Then a `{"kernels": [...]}` line and, last, `{"ok": true, "device": ...}`.
 Needs one CUDA device; exits non-zero without one.
@@ -166,6 +175,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from bundleadjustment_tpu_torch.utils.timing import cuda_time, device_times, kernel_name
 
 
 # kernel name -> (route, source, TPU kernel it replaces, the run that must
@@ -235,90 +246,6 @@ def emit(obj):
     if "phase" in obj:
         obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
-
-
-def cuda_time(fn, reps=20, warmup=3):
-    """Mean milliseconds per call of fn() on the current stream, CUDA events
-    around back-to-back calls. Where the card finishes a call faster than
-    the host issues the next, this is the host's per-call cost."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def kernel_name(name):
-    """A profiler record's kernel name without its return type, namespace and
-    arguments (at most 80 characters)."""
-    name = name.split("(anonymous namespace)::")[-1]
-    name = name[5:] if name.startswith("void ") else name
-    return name.split("(")[0][:80]
-
-
-def device_times(fn, reps=10, tries=3, kernel=None):
-    """Device time per call of fn() from torch.profiler's kernel records
-    (host gaps excluded). On an H100 a profiler session drops a few records
-    (2-3 of 120-180 in most sessions) or, now and then, all of one kernel's,
-    and in some sessions every kernel's durations come out at half of what
-    CUDA events around the same device-bound calls show (PERF.md). So
-    the times are built per kernel over `tries` sessions: in each, a
-    kernel's records give its min, median, max and mean, and its launches a
-    call (its records over `reps`, rounded, at least 1); "ms" is the sum
-    over the kernels of mean x launches, "ms_min", "ms_median", "ms_max"
-    the sums of their mins, medians and maxes, "per_kernel" each kernel's
-    figures. Of the sessions that hold the most kernels (and, with `kernel`,
-    a part of the name of a kernel that fn launches, that one), the one
-    whose "ms" is the median counts; "sessions_ms" lists each session's
-    "ms". Without a session that counts, the time is taken with CUDA events
-    instead (cuda_time, "ms_source": "cuda_events", no spread)."""
-    import statistics
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    sessions = []
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        durs = {}
-        for e in prof.events():
-            if str(e.device_type).endswith("CUDA"):
-                durs.setdefault(kernel_name(e.name), []).append(
-                    e.time_range.elapsed_us() / 1e3)
-        if not durs or sum(map(sum, durs.values())) <= 0.0:
-            continue
-        if kernel is not None and not any(kernel in n for n in durs):
-            continue
-        per = {}
-        for name, d in durs.items():
-            per[name] = {"records": len(d), "launches": max(1, round(len(d) / reps)),
-                         "min": min(d), "median": statistics.median(d), "max": max(d),
-                         "mean": sum(d) / len(d)}
-        tot = lambda k, per=per: sum(v[k] * v["launches"] for v in per.values())
-        sessions.append({"ms": tot("mean"), "ms_source": "profiler", "ms_min": tot("min"),
-                         "ms_median": tot("median"), "ms_max": tot("max"),
-                         "per_kernel": per})
-    if not sessions:
-        return {"ms": cuda_time(fn), "ms_source": "cuda_events", "ms_min": None,
-                "ms_median": None, "ms_max": None, "per_kernel": None,
-                "sessions_ms": []}
-    most = max(len(x["per_kernel"]) for x in sessions)
-    full = sorted((x for x in sessions if len(x["per_kernel"]) == most),
-                  key=lambda x: x["ms"])
-    return {**full[(len(full) - 1) // 2], "sessions_ms": [x["ms"] for x in sessions]}
 
 
 def device_breakdown(fn, top=8):
@@ -2141,6 +2068,79 @@ def phase_protocol_resume_worker(device, n_frames=40, cut=20):
     return r["launches"]
 
 
+def stage_agreement(name, got, ref):
+    """A frontend stage's outputs on the card (got) against the CPU's (ref)
+    by the rule of tests/test_torch_frontend_stages.py: float maps within
+    rtol 1e-5 and atol 1e-6 of the map's largest magnitude ("err_over_tol":
+    the largest error over its tolerance, <= 1), FAST and BRIEF equal,
+    orientation to 1e-4, nms_topk's values equal and its indices as sets
+    where the values are distinct, detect_level0 >= 99% of keypoints the
+    same (validity, position to 1e-3 px) with equal descriptors and angles
+    to 1e-4."""
+    import numpy as np
+
+    host = lambda x: x.cpu().numpy()[0]  # noqa: E731
+    if name in ("harris", "blur", "resize_7levels"):
+        pairs = zip(got, ref) if name == "resize_7levels" else [(got, ref)]
+        err, over = 0.0, 0.0
+        for g, r in pairs:
+            g, r = host(g), host(r)
+            e = np.abs(g - r)
+            err = max(err, float(e.max()))
+            over = max(over, float((e / (1e-5 * np.abs(r) + 1e-6 * np.abs(r).max())).max()))
+        return {"ok": over <= 1.0, "max_abs_err": err, "err_over_tol": over}
+    if name in ("fast", "brief"):
+        differ = int((host(got) != host(ref)).sum())
+        return {"ok": differ == 0, "differ": differ}
+    if name == "orientation":
+        err = float(np.abs(host(got) - host(ref)).max())
+        return {"ok": err <= 1e-4, "max_abs_err": err}
+    if name == "nms_topk":
+        (gv, gi), (rv, ri) = map(host, got), map(host, ref)
+        u, n = np.unique(rv, return_counts=True)
+        distinct = u[n == 1]
+        ok = (np.array_equal(np.sort(gv), np.sort(rv))
+              and set(gi[np.isin(gv, distinct)].tolist())
+              == set(ri[np.isin(rv, distinct)].tolist()))
+        return {"ok": bool(ok), "distinct_values": len(distinct)}
+    gy, gx, _, ga, gd, gvalid = map(host, got)
+    ry, rx, _, ra, rd, rvalid = map(host, ref)
+    same = (np.abs(gx - rx) < 1e-3) & (np.abs(gy - ry) < 1e-3) & (gvalid == rvalid)
+    ang = float(np.abs(ga - ra)[same].max())
+    desc = int((gd != rd)[same].any(-1).sum())
+    return {"ok": bool(same.mean() >= 0.99 and desc == 0 and ang <= 1e-4),
+            "same_share": float(same.mean()), "valid": int(gvalid.sum()),
+            "desc_differ": desc, "angle_max_abs_err": ang}
+
+
+def phase_frontend_stages(device):
+    """`bench/frontend.run` at its full geometry (640x480, 1,000 features, 8
+    levels, 12 frames) on the card, one line a measurement; then each of its
+    eight stages on the card against the same stage on the CPU on one
+    640x480 frame, every input computed on the CPU (`stage_agreement`;
+    also the NMS mask equal)."""
+    from bundleadjustment_tpu_torch.bench import frontend
+    from bundleadjustment_tpu_torch.ops import features as F
+
+    for line in frontend.run(device):
+        emit({"phase": "frontend_stages", **line})
+    cfg = F.FeatureConfig()
+    fns = frontend.stage_fns(cfg, 480, 640)
+    ins = frontend.stage_inputs(frontend.render_frames(1, 640, 480, "cpu"), cfg)
+    checks = {}
+    for name in frontend.STAGES:
+        args = ins[name][0]
+        checks[name] = stage_agreement(name, fns[name](*(a.to(device) for a in args)),
+                                       fns[name](*args))
+    hmap = ins["nms_topk"][0][0]
+    nms_differ = int((F._nms3(hmap.to(device)).cpu() != F._nms3(hmap)).sum())
+    checks["nms_mask"] = {"ok": nms_differ == 0, "differ": nms_differ}
+    emit({"phase": "frontend_stages_card_vs_cpu", "frame": "640x480", "checks": checks})
+    bad = [name for name, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"frontend stages that differ on the card: {bad}")
+
+
 def check_launches(runs):
     """Per-path launch check: each kernel launched by the run of its path
     (KERNELS), and the sharded run's local BAs and evals through B and C."""
@@ -2203,6 +2203,7 @@ def main():
     runs["pipeline_depth_seeded"] = phase_pipeline_depth_seeded(device)
     runs["protocol_config1"] = phase_protocol_config1(device)
     runs["protocol_resume_worker"] = phase_protocol_resume_worker(device)
+    phase_frontend_stages(device)
     check_launches(runs)
     phase_pipeline_shapes(pipe, results)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -46,6 +46,7 @@ import bundleadjustment_tpu_torch.vis.live
 import bundleadjustment_tpu_torch.vis.debug
 import bundleadjustment_tpu_torch.bench.protocols
 import bundleadjustment_tpu_torch.bench.solve
+import bundleadjustment_tpu_torch.bench.frontend
 import bundleadjustment_tpu_torch.ops.features
 import bundleadjustment_tpu_torch.ops.hamming
 import bundleadjustment_tpu_torch.ops.matching
@@ -53,6 +54,7 @@ import bundleadjustment_tpu_torch.geometry.se3
 import bundleadjustment_tpu_torch.solvers.lm
 import bundleadjustment_tpu_torch.utils.flops
 import bundleadjustment_tpu_torch.utils.marginal
+import bundleadjustment_tpu_torch.utils.timing
 import chip_smoke
 import profile_port
 import profile_chol

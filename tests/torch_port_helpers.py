@@ -278,3 +278,23 @@ def jax_line_keys(fn_name):
     ret = max((n for n in ast.walk(fn) if isinstance(n, ast.Return)
                and isinstance(n.value, ast.Dict)), key=lambda n: n.lineno)
     return {RENAMED.get(k.value, k.value) for k in ret.value.keys}
+
+
+def jax_frontend_metrics():
+    """The metric names that the JAX package's root-level profile_frontend.py
+    prints, read from its source: each "metric" value of its dicts, the
+    f-string over its `stages` dict expanded with that dict's keys."""
+    tree = ast.parse(open(os.path.join(REPO, "profile_frontend.py")).read())
+    stages = next(n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                  and getattr(n.targets[0], "id", None) == "stages")
+    names = set()
+    for d in (n for n in ast.walk(tree) if isinstance(n, ast.Dict)):
+        for k, v in zip(d.keys, d.values):
+            if not (isinstance(k, ast.Constant) and k.value == "metric"):
+                continue
+            if isinstance(v, ast.Constant):
+                names.add(v.value)
+            else:  # f"frontend_stage_{name}_ms" over the stages
+                head, tail = v.values[0].value, v.values[-1].value
+                names |= {head + s.value + tail for s in stages.keys}
+    return names
