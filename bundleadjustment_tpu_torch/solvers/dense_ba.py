@@ -26,7 +26,7 @@ One LM iteration (`dense_ba_solve`), `solver="dense"`:
 4. accept / reject with `torch.where`: no host sync inside the loop.
 
 With `solver="pcg"` the step is the reference's non-fused branch
-(`_pcg_step`): the damped U and V^-1 in PyTorch, PCG on the camera system
+(`_pcg_system`): the damped U and V^-1 in PyTorch, PCG on the camera system
 with one `reduce` of the [K, 6] back-projection per matvec (`schur.pcg`),
 the landmark back-substitution in PyTorch, then kernel B without the
 back-substitution (`eval_assemble`) at the trial point. It launches no C,
@@ -36,6 +36,10 @@ The LM semantics are the reference's: a fixed `max_iters`, state frozen once
 `done` is set, lambda / 3 on accept and lambda * nu on reject. Kernel B seeds
 the loop without the back-substitution. On CPU tensors both kernels run
 their plain PyTorch versions (`solvers/dense_kernels.py`).
+
+Each solve is a span `ba.solve` of the module's `TIMER`, and steps 1-4 of
+each iteration are its child spans `ba.schur`, `ba.camera_solve`, `ba.eval`
+and `ba.lm_update`, on every route and with PCG.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ from bundleadjustment_tpu_torch.solvers.lm import (
     check_solver,
 )
 from bundleadjustment_tpu_torch.solvers.residuals import HUBER_DELTA
+from bundleadjustment_tpu_torch.solvers.schur import block_jacobi, pcg
+from bundleadjustment_tpu_torch.utils.profiling import PhaseTimer
 
 
 @dataclass
@@ -282,11 +288,18 @@ def schur_route(O):
     return "s" if O <= S_KERNEL_MAX_O else "prepare"
 
 
-def _solve_unfolded(dk, route, lam, Vu, g_p, W18, cm, red, reduce):
-    """Branches (b) and (c) of the reference's `solve_fused`: the +Q Q^T
-    partial and red6 (K5, or kernel D + Pf + Q Q^T), all-reduced, then the
-    damped U and 1e-8 I folded in and the Cholesky solve, in (i, k) order
-    as route (a). Returns (dc [K, 6], vinv6)."""
+# The solve's spans (module docstring), always on. They time the host's
+# issue of the work, since the solve does not synchronise; the records of the
+# last 64 solves stay in memory, and under a profiler the spans join its
+# trace.
+TIMER = PhaseTimer()
+
+
+def _system_unfolded(dk, route, lam, Vu, g_p, W18, cm, red, reduce):
+    """Branches (b) and (c) of the reference's `solve_fused` up to the camera
+    system: the +Q Q^T partial and red6 (K5, or kernel D + Pf + Q Q^T),
+    all-reduced, then the damped U and 1e-8 I folded in, in (i, k) order as
+    route (a). Returns (S, b, vinv6)."""
     from bundleadjustment_tpu_torch.solvers.dense_kernels import (
         damped_system,
         pf_index_add,
@@ -302,20 +315,20 @@ def _solve_unfolded(dk, route, lam, Vu, g_p, W18, cm, red, reduce):
                                                cm.cam_t, K)
         S_qqt = qqt(pf_index_add(G, cm.cam_t, K), K)
     S, b = damped_system(lam, red, cm.cam_fixed, reduce(S_qqt), reduce(red6))
-    return dk.chol_solve(S, b).reshape(6, K).T, vinv6
+    return S, b, vinv6
 
 
-def _pcg_step(lam, red, Vu, g_p, W18, cm, pcg_iters, reduce):
-    """The camera solve of the reference's non-fused PCG branch
-    (`solve_cameras`, `bundleadjustment_tpu/solvers/dense_ba.py:465-529`).
-    Each product over a landmark's slots is one einsum (the reference's
-    unrolled sums, in another summation order). Returns (dc [K, 6], vinv6
+def _pcg_system(lam, red, Vu, g_p, W18, cm, reduce):
+    """The camera system of the reference's non-fused PCG branch
+    (`solve_cameras`, `bundleadjustment_tpu/solvers/dense_ba.py:465-529`),
+    which `schur.pcg` solves. Each product over a landmark's slots is one
+    einsum (the reference's unrolled sums, in another summation order).
+    Returns (matvec, b [K, 6], U [K, 6, 6] for the preconditioner, vinv6
     [6, L] for the back-substitution)."""
     from bundleadjustment_tpu_torch.solvers.dense_kernels import (
         damped_u,
         point_inverse_plain,
     )
-    from bundleadjustment_tpu_torch.solvers.schur import block_jacobi, pcg
 
     K = cm.cam_fixed.shape[0]
     O, L = cm.cam_t.shape
@@ -339,7 +352,7 @@ def _pcg_step(lam, red, Vu, g_p, W18, cm, pcg_iters, reduce):
                 - to_cams(torch.einsum("jml,ml->jl", V_inv, y)))
 
     b = -(g_c - to_cams(zv))
-    return pcg(matvec, b, block_jacobi(U), pcg_iters), vinv6
+    return matvec, b, U, vinv6
 
 
 def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
@@ -358,82 +371,93 @@ def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
     step all-reduces the unfolded partial: K5 for O <= 64. Above O = 64
     both take kernel D + Pf + Q Q^T (`schur_route`). The cost and the
     per-camera rows are reduced after every eval. With `config.solver ==
-    "pcg"` every route gives way to `_pcg_step` (one reduce per matvec) and
-    kernel B without back-substitution.
+    "pcg"` every route gives way to `_pcg_system` and `schur.pcg` (one
+    reduce per matvec) and kernel B without back-substitution.
     """
-    from bundleadjustment_tpu_torch.solvers import dense_kernels
-    from bundleadjustment_tpu_torch.solvers.dense_kernels import _backsub_plain
+    span = TIMER.phase
+    with span("ba.solve"):
+        from bundleadjustment_tpu_torch.solvers import dense_kernels
+        from bundleadjustment_tpu_torch.solvers.dense_kernels import _backsub_plain
 
-    dk = dense_kernels.KERNEL_OPS if ops is None else ops
-    check_solver(config)
-    single = reduce is None
-    if single:
-        reduce = lambda x: x  # noqa: E731
-    cm = _to_cm(prob)
-    K = cm.cam_fixed.shape[0]
-    O, L = cm.cam_t.shape
-    route = schur_route(O)
-    R = aa_to_rotmat(cam_rt6[:, :3]).contiguous()
-    t = cam_rt6[:, 3:].contiguous()
-    Xt = points.T.contiguous()
-    args = (cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t)
-    cost, red, Vu, g_p, W = dk.eval_assemble(*args, R, t, Xt,
-                                             robust=config.robust)
-    cost, red = reduce(cost), reduce(red)
-    cost0 = cost
-    dev, dt_ = cost.device, cost.dtype
-    lam = torch.tensor(config.lam0, dtype=dt_, device=dev)
-    nu = torch.tensor(2.0, dtype=dt_, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    fixed = cm.cam_fixed[:, None]
-    zero = torch.zeros((), dtype=dt_, device=dev)
-    hist = []
-    pcg_mode = config.solver == "pcg"
-    for _ in range(config.max_iters):
-        W18 = W.reshape(18, O, L)
-        if pcg_mode:
-            dc, vinv6 = _pcg_step(lam, red, Vu, g_p, W18, cm, config.pcg_iters,
-                                  reduce)
-        elif single and route == "s":
-            S, _zv, vinv6, b = dk.schur_prepare_s(
-                lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K, red, cm.cam_fixed)
-            # S and b are in (i, k) order: the solution comes back as [6, K]
-            dc = dk.chol_solve(S, b).reshape(6, K).T
-        else:
-            dc, vinv6 = _solve_unfolded(dk, route, lam, Vu, g_p, W18, cm, red,
-                                        reduce)
-        dc = torch.where(fixed, zero, dc).contiguous()
-        R_new = (aa_to_rotmat(dc[:, :3]) @ R).contiguous()
-        t_new = (t + dc[:, 3:]).contiguous()
-        if pcg_mode:
-            Xt_n = _backsub_plain(cm.cam_t, dc, Xt, W18, vinv6, g_p,
-                                  cm.pt_valid).contiguous()
-            new_cost, red_n, Vu_n, gp_n, W_n = dk.eval_assemble(
-                *args, R_new, t_new, Xt_n, robust=config.robust)
-        else:
-            new_cost, red_n, Vu_n, gp_n, W_n, Xt_n = dk.eval_assemble_bs(
-                *args, R_new, t_new, dc, Xt, W18, vinv6, g_p, cm.pt_valid,
-                robust=config.robust)
-        new_cost, red_n = reduce(new_cost), reduce(red_n)
-        accept = (new_cost < cost) & torch.isfinite(new_cost)
-        take = accept & ~done
-        rel = (cost - new_cost) / torch.clamp(cost, min=1e-20)
-        R = torch.where(take, R_new, R)
-        t = torch.where(take, t_new, t)
-        Xt = torch.where(take, Xt_n, Xt)
-        lam, nu = (
-            torch.where(done, lam, torch.where(accept, lam / 3.0, lam * nu)),
-            torch.where(done, nu, torch.where(accept, torch.full_like(nu, 2.0),
-                                              nu * 2.0)),
-        )
-        cost = torch.where(take, new_cost, cost)
-        done = done | (accept & (rel < config.rtol))
-        red = torch.where(take, red_n, red)
-        Vu = torch.where(take, Vu_n, Vu)
-        g_p = torch.where(take, gp_n, g_p)
-        W = torch.where(take, W_n, W)
-        hist.append(new_cost)
-    cams_out = torch.cat([rotmat_to_aa(R), t], -1)
-    info = {"cost0": cost0, "cost": cost,
-            "cost_history": torch.stack(hist) if hist else cost[None][:0]}
-    return cams_out, Xt.T, info
+        dk = dense_kernels.KERNEL_OPS if ops is None else ops
+        check_solver(config)
+        single = reduce is None
+        if single:
+            reduce = lambda x: x  # noqa: E731
+        cm = _to_cm(prob)
+        K = cm.cam_fixed.shape[0]
+        O, L = cm.cam_t.shape
+        route = schur_route(O)
+        R = aa_to_rotmat(cam_rt6[:, :3]).contiguous()
+        t = cam_rt6[:, 3:].contiguous()
+        Xt = points.T.contiguous()
+        args = (cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t)
+        cost, red, Vu, g_p, W = dk.eval_assemble(*args, R, t, Xt,
+                                                 robust=config.robust)
+        cost, red = reduce(cost), reduce(red)
+        cost0 = cost
+        dev, dt_ = cost.device, cost.dtype
+        lam = torch.tensor(config.lam0, dtype=dt_, device=dev)
+        nu = torch.tensor(2.0, dtype=dt_, device=dev)
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        fixed = cm.cam_fixed[:, None]
+        zero = torch.zeros((), dtype=dt_, device=dev)
+        hist = []
+        pcg_mode = config.solver == "pcg"
+        for _ in range(config.max_iters):
+            with span("ba.schur"):
+                W18 = W.reshape(18, O, L)
+                if pcg_mode:
+                    matvec, b, U, vinv6 = _pcg_system(lam, red, Vu, g_p, W18, cm,
+                                                      reduce)
+                elif single and route == "s":
+                    S, _zv, vinv6, b = dk.schur_prepare_s(
+                        lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K, red,
+                        cm.cam_fixed)
+                else:
+                    S, b, vinv6 = _system_unfolded(dk, route, lam, Vu, g_p, W18,
+                                                   cm, red, reduce)
+            with span("ba.camera_solve"):
+                if pcg_mode:
+                    dc = pcg(matvec, b, block_jacobi(U), config.pcg_iters)
+                else:
+                    # S and b are in (i, k) order: the solution comes back as
+                    # [6, K]
+                    dc = dk.chol_solve(S, b).reshape(6, K).T
+                dc = torch.where(fixed, zero, dc).contiguous()
+            with span("ba.eval"):
+                R_new = (aa_to_rotmat(dc[:, :3]) @ R).contiguous()
+                t_new = (t + dc[:, 3:]).contiguous()
+                if pcg_mode:
+                    Xt_n = _backsub_plain(cm.cam_t, dc, Xt, W18, vinv6, g_p,
+                                          cm.pt_valid).contiguous()
+                    new_cost, red_n, Vu_n, gp_n, W_n = dk.eval_assemble(
+                        *args, R_new, t_new, Xt_n, robust=config.robust)
+                else:
+                    new_cost, red_n, Vu_n, gp_n, W_n, Xt_n = dk.eval_assemble_bs(
+                        *args, R_new, t_new, dc, Xt, W18, vinv6, g_p, cm.pt_valid,
+                        robust=config.robust)
+                new_cost, red_n = reduce(new_cost), reduce(red_n)
+            with span("ba.lm_update"):
+                accept = (new_cost < cost) & torch.isfinite(new_cost)
+                take = accept & ~done
+                rel = (cost - new_cost) / torch.clamp(cost, min=1e-20)
+                R = torch.where(take, R_new, R)
+                t = torch.where(take, t_new, t)
+                Xt = torch.where(take, Xt_n, Xt)
+                lam, nu = (
+                    torch.where(done, lam, torch.where(accept, lam / 3.0, lam * nu)),
+                    torch.where(done, nu, torch.where(accept, torch.full_like(nu, 2.0),
+                                                      nu * 2.0)),
+                )
+                cost = torch.where(take, new_cost, cost)
+                done = done | (accept & (rel < config.rtol))
+                red = torch.where(take, red_n, red)
+                Vu = torch.where(take, Vu_n, Vu)
+                g_p = torch.where(take, gp_n, g_p)
+                W = torch.where(take, W_n, W)
+                hist.append(new_cost)
+        cams_out = torch.cat([rotmat_to_aa(R), t], -1)
+        info = {"cost0": cost0, "cost": cost,
+                "cost_history": torch.stack(hist) if hist else cost[None][:0]}
+        return cams_out, Xt.T, info

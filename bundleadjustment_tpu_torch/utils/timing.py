@@ -34,6 +34,16 @@ def kernel_name(name):
     return name.split("(")[0][:80]
 
 
+def device_events(prof):
+    """The records of a `torch.profiler` session that are the card's work:
+    its CUDA-typed events less the "gpu_user_annotation" ranges that the
+    profiler lays on the card's timeline for a `record_function` span (each
+    `utils/profiling.PhaseTimer` span opened under a session with host
+    activity, such as the dense solve's `ba.*`)."""
+    return [e for e in prof.events() if str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_times(fn, reps=10, tries=3, kernel=None):
     """Device time per call of fn() from torch.profiler's kernel records
     (host gaps excluded). On an H100 a profiler session drops a few records
@@ -64,10 +74,8 @@ def device_times(fn, reps=10, tries=3, kernel=None):
                 fn()
             torch.cuda.synchronize()
         durs = {}
-        for e in prof.events():
-            if str(e.device_type).endswith("CUDA"):
-                durs.setdefault(kernel_name(e.name), []).append(
-                    e.time_range.elapsed_us() / 1e3)
+        for e in device_events(prof):
+            durs.setdefault(kernel_name(e.name), []).append(e.time_range.elapsed_us() / 1e3)
         if not durs or sum(map(sum, durs.values())) <= 0.0:
             continue
         if kernel is not None and not any(kernel in n for n in durs):

@@ -176,7 +176,12 @@ import sys
 import tempfile
 import time
 
-from bundleadjustment_tpu_torch.utils.timing import cuda_time, device_times, kernel_name
+from bundleadjustment_tpu_torch.utils.timing import (
+    cuda_time,
+    device_events,
+    device_times,
+    kernel_name,
+)
 
 
 # kernel name -> (route, source, TPU kernel it replaces, the run that must
@@ -264,11 +269,10 @@ def device_breakdown(fn, top=8):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     per = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            d = per.setdefault(kernel_name(e.name), [0, 0.0])
-            d[0] += 1
-            d[1] += e.time_range.elapsed_us() / 1e3
+    for e in device_events(prof):
+        d = per.setdefault(kernel_name(e.name), [0, 0.0])
+        d[0] += 1
+        d[1] += e.time_range.elapsed_us() / 1e3
     busy = sum(d[1] for d in per.values())
     ranked = sorted(per.items(), key=lambda kv: -kv[1][1])[:top]
     return {"wall_ms": wall, "device_ms": busy,

@@ -47,11 +47,9 @@ def emit(obj):
 
 def kernel_events(prof):
     """(name, duration ms) of every kernel the card ran in the profile."""
-    out = []
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            out.append((e.name, e.time_range.elapsed_us() / 1e3))
-    return out
+    from bundleadjustment_tpu_torch.utils.timing import device_events
+
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in device_events(prof)]
 
 
 def report_window(name, prof, wall, n_frames):

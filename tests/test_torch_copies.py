@@ -22,7 +22,9 @@ COPIES = ["data/tum.py", "data/replica.py", "data/synthetic.py",
 # copy -> top-level names that differ on purpose
 DIFFERS = {
     "native/__init__.py": {"_BUILD", "_SO", "_build"},  # builds into _build/
-    "utils/profiling.py": {"device_trace"},  # torch.profiler in place of jax's
+    # torch.profiler in place of jax's; PhaseTimer grown into the span
+    # recorder, with its span (_Span) and a thread's open spans (_Thread)
+    "utils/profiling.py": {"device_trace", "PhaseTimer", "_Span", "_Thread"},
 }
 # copy -> functions that take a `device` and pass it on (Poisson on the card)
 DEVICE_ARG = {"vis/mesh.py": {"create_map_mesh"}}
