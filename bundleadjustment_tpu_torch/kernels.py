@@ -8,8 +8,11 @@ machine imports every module without nvcc.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check()` raises on a non-zero code. `LAUNCHES` counts,
-per kernel, the calls in which its wrapper launched it; `reset_launch_counts`
-and `launch_counts` let a driver show that a run went through the kernels.
+per kernel, the calls in which its wrapper launched it, and under
+"graph_replay" the replays of the dense solve's captured CUDA graphs
+(`solvers/dense_ba.py`), whose kernels no wrapper launches;
+`reset_launch_counts` and `launch_counts` let a caller show that a run went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -77,7 +80,8 @@ SIGNATURES = {
 # launches per kernel since the last reset (see module docstring)
 LAUNCHES = {"hamming_top2": 0, "dense_eval_assemble": 0,
             "dense_eval_assemble_bs": 0, "schur_prepare_s": 0,
-            "schur_qqt_partial": 0, "schur_prepare": 0, "chol_solve": 0}
+            "schur_qqt_partial": 0, "schur_prepare": 0, "chol_solve": 0,
+            "graph_replay": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -37,13 +37,51 @@ The LM semantics are the reference's: a fixed `max_iters`, state frozen once
 the loop without the back-substitution. On CPU tensors both kernels run
 their plain PyTorch versions (`solvers/dense_kernels.py`).
 
+Two paths run the same iteration, written once as four segment functions
+(`_schur_system`, `_camera_step`, `_trial`, `_lm_update`):
+
+- eager (`_solve_eager`): each iteration calls the segments and rebinds
+  their results, every route, PCG and sharded;
+- graphed (`_LoopGraphs`): steps 1, 3 and 4 are each captured once as a
+  `torch.cuda.CUDAGraph`, which reads and writes static buffers (the loop
+  state, the step dc, S and b, the trial point; `_lm_update` writes the
+  state in place), and each iteration replays them around step 2, which
+  stays eager. The host then issues three graph launches and the camera
+  solve's few ops an iteration, where the eager path issues about 80, so
+  the card, not the host, sets the pace.
+
+The camera solve stays outside the graphs: its Cholesky stays a host op of
+its own, to which a profiler links the Cholesky's kernels (the benchmark's
+Schur roofline closes each iteration's window there), and `ops.chol_solve`
+stays free to be the library call or kernel E.
+
+The graphed path engages (`graph_engages`) on CUDA tensors, one device
+(`reduce` None) and the exact solver, when the call repeats the key
+(`graph_key`) of one of the last `GRAPHS.SIZE` such calls: the problem's
+tensors (identity, data pointer, `_version`, shape), the route, the
+settings baked into the graphs and `ops`. The first call of a key runs
+eager, and is the warm-up that capture needs (kernels loaded, library
+workspaces made); the second captures, then replays. A problem edited in
+place has a new `_version`, so a new key. Each captured key has its own
+memory pool, freed when the key leaves the cache or one of its problem's
+tensors dies. A new problem each call (the pipeline's BAs), the sharded
+engine, PCG and CPU tensors always run eager.
+
 Each solve is a span `ba.solve` of the module's `TIMER`, and steps 1-4 of
 each iteration are its child spans `ba.schur`, `ba.camera_solve`, `ba.eval`
-and `ba.lm_update`, on every route and with PCG.
+and `ba.lm_update`, on every route, with PCG and in both paths. A graphed
+solve's iterations lie inside a span `ba.graph`, and a capture is a span
+`ba.capture`, so a solve's record says which path ran it.
+`kernels.LAUNCHES["graph_replay"]` counts the replays; the kernels'
+own counts stay those of their wrappers' launches, which a capture does
+not add to.
 """
 
 from __future__ import annotations
 
+import functools
+import weakref
+from collections import OrderedDict, namedtuple
 from dataclasses import dataclass
 
 import numpy as np
@@ -186,6 +224,14 @@ for _n, (_i, _j) in enumerate(TRIU6):
 SYM3_IDX = np.zeros((3, 3), np.int64)
 for _n, (_i, _j) in enumerate(TRIU3):
     SYM3_IDX[_i, _j] = SYM3_IDX[_j, _i] = _n
+
+
+@functools.lru_cache(maxsize=None)
+def sym6_index(device):
+    """SYM6_IDX as a tensor on `device`, copied there once: a copy from the
+    host inside the LM loop would wait for the host (and cannot be captured
+    in a CUDA graph)."""
+    return torch.from_numpy(SYM6_IDX).to(device)
 
 
 def _eval_cm(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt, robust):
@@ -355,6 +401,283 @@ def _pcg_system(lam, red, Vu, g_p, W18, cm, reduce):
     return matvec, b, U, vinv6
 
 
+# The LM loop's state, and an iteration's trial point (cameras as R [K,3,3]
+# and t [K,3], landmarks as Xt [3,L], the cost and the reductions of kernel
+# B at them; lam, nu and done 0-d).
+LMState = namedtuple("LMState", "R t Xt cost red Vu g_p W lam nu done")
+Trial = namedtuple("Trial", "R t Xt cost red Vu g_p W")
+
+
+def _same(x):
+    """The `reduce` of one device: nothing to sum over."""
+    return x
+
+
+def _eval_args(cm):
+    return (cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t)
+
+
+def _lm_start(dk, cm, cam_rt6, points, config, reduce):
+    """The loop's start: the state at (cam_rt6, points) by kernel B without
+    the back-substitution, lam0, nu = 2, not done."""
+    R = aa_to_rotmat(cam_rt6[:, :3]).contiguous()
+    t = cam_rt6[:, 3:].contiguous()
+    Xt = points.T.contiguous()
+    cost, red, Vu, g_p, W = dk.eval_assemble(*_eval_args(cm), R, t, Xt,
+                                             robust=config.robust)
+    cost, red = reduce(cost), reduce(red)
+    dev, dt_ = cost.device, cost.dtype
+    return LMState(R, t, Xt, cost, red, Vu, g_p, W,
+                   torch.tensor(config.lam0, dtype=dt_, device=dev),
+                   torch.tensor(2.0, dtype=dt_, device=dev),
+                   torch.zeros((), dtype=torch.bool, device=dev))
+
+
+def _schur_system(dk, cm, route, single, st, reduce):
+    """Step 1, exact: (S, b, vinv6) of the damped Schur system at the state,
+    by kernel C (one device, route (s)) or `_system_unfolded`."""
+    K = cm.cam_fixed.shape[0]
+    O, L = cm.cam_t.shape
+    W18 = st.W.reshape(18, O, L)
+    if single and route == "s":
+        S, _zv, vinv6, b = dk.schur_prepare_s(st.lam, st.Vu, st.g_p, cm.pt_valid, W18,
+                                              cm.cam_t, K, st.red, cm.cam_fixed)
+        return S, b, vinv6
+    return _system_unfolded(dk, route, st.lam, st.Vu, st.g_p, W18, cm, st.red, reduce)
+
+
+def _camera_step(dk, S, b, fixed, zero, out=None):
+    """Step 2, exact: the camera step dc [K, 6] = S^-1 b by `dk.chol_solve`,
+    zero for the fixed cameras (`fixed` [K, 1]); written into `out` where
+    given."""
+    # S and b are in (i, k) order: the solution comes back as [6, K]
+    x = dk.chol_solve(S, b).reshape(6, -1).T
+    if out is None:
+        return torch.where(fixed, zero, x).contiguous()
+    return torch.where(fixed, zero, x, out=out)
+
+
+def _trial(dk, cm, config, st, dc, vinv6, reduce, pcg_mode=False):
+    """Step 3: the trial point of the step dc and kernel B there: with the
+    landmarks' back-substitution fused (exact), or after it (PCG)."""
+    from bundleadjustment_tpu_torch.solvers.dense_kernels import _backsub_plain
+
+    O, L = cm.cam_t.shape
+    W18 = st.W.reshape(18, O, L)
+    args = _eval_args(cm)
+    R_new = (aa_to_rotmat(dc[:, :3]) @ st.R).contiguous()
+    t_new = (st.t + dc[:, 3:]).contiguous()
+    if pcg_mode:
+        Xt_n = _backsub_plain(cm.cam_t, dc, st.Xt, W18, vinv6, st.g_p,
+                              cm.pt_valid).contiguous()
+        cost, red, Vu, g_p, W = dk.eval_assemble(*args, R_new, t_new, Xt_n,
+                                                 robust=config.robust)
+    else:
+        cost, red, Vu, g_p, W, Xt_n = dk.eval_assemble_bs(
+            *args, R_new, t_new, dc, st.Xt, W18, vinv6, st.g_p, cm.pt_valid,
+            robust=config.robust)
+    return Trial(R_new, t_new, Xt_n, reduce(cost), reduce(red), Vu, g_p, W)
+
+
+def _lm_update(st, tr, rtol, out=None):
+    """Step 4: accept the trial where its cost is lower and finite and the
+    loop is not done; lambda / 3 on accept, lambda * nu on reject; done once
+    an accepted step gains less than `rtol`. Returns the new state, written
+    into `out` where given: `out` may be `st` itself, as each write reads
+    nothing that an earlier write has changed."""
+    o = LMState(*[None] * len(LMState._fields)) if out is None else out
+    accept = (tr.cost < st.cost) & torch.isfinite(tr.cost)
+    take = accept & ~st.done
+    rel = (st.cost - tr.cost) / torch.clamp(st.cost, min=1e-20)
+    R = torch.where(take, tr.R, st.R, out=o.R)
+    t = torch.where(take, tr.t, st.t, out=o.t)
+    Xt = torch.where(take, tr.Xt, st.Xt, out=o.Xt)
+    lam = torch.where(st.done, st.lam,
+                      torch.where(accept, st.lam / 3.0, st.lam * st.nu), out=o.lam)
+    nu = torch.where(st.done, st.nu,
+                     torch.where(accept, torch.full_like(st.nu, 2.0), st.nu * 2.0),
+                     out=o.nu)
+    cost = torch.where(take, tr.cost, st.cost, out=o.cost)
+    done = torch.bitwise_or(st.done, accept & (rel < rtol), out=o.done)
+    red = torch.where(take, tr.red, st.red, out=o.red)
+    Vu = torch.where(take, tr.Vu, st.Vu, out=o.Vu)
+    g_p = torch.where(take, tr.g_p, st.g_p, out=o.g_p)
+    W = torch.where(take, tr.W, st.W, out=o.W)
+    return LMState(R, t, Xt, cost, red, Vu, g_p, W, lam, nu, done)
+
+
+def _solve_eager(dk, cm, route, single, st, config, reduce, span):
+    """The eager path: `config.max_iters` iterations from the state `st`.
+    Returns (the last state, the trial costs [max_iters])."""
+    O, L = cm.cam_t.shape
+    fixed = cm.cam_fixed[:, None]
+    zero = torch.zeros((), dtype=st.cost.dtype, device=st.cost.device)
+    hist = []
+    pcg_mode = config.solver == "pcg"
+    for _ in range(config.max_iters):
+        with span("ba.schur"):
+            if pcg_mode:
+                matvec, b, U, vinv6 = _pcg_system(st.lam, st.red, st.Vu, st.g_p,
+                                                  st.W.reshape(18, O, L), cm, reduce)
+            else:
+                S, b, vinv6 = _schur_system(dk, cm, route, single, st, reduce)
+        with span("ba.camera_solve"):
+            if pcg_mode:
+                dc = pcg(matvec, b, block_jacobi(U), config.pcg_iters)
+                dc = torch.where(fixed, zero, dc).contiguous()
+            else:
+                dc = _camera_step(dk, S, b, fixed, zero)
+        with span("ba.eval"):
+            tr = _trial(dk, cm, config, st, dc, vinv6, reduce, pcg_mode)
+        with span("ba.lm_update"):
+            st = _lm_update(st, tr, config.rtol)
+            hist.append(tr.cost)
+    return st, torch.stack(hist) if hist else st.cost[None][:0]
+
+
+def _capture(fn, pool):
+    """(graph, fn's outputs): fn() captured as a CUDA graph whose memory
+    comes from `pool`. Nothing runs; each replay runs the captured work on
+    the same buffers, and so writes the same output tensors."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        out = fn()
+    return graph, out
+
+
+class _LoopGraphs:
+    """One key's LM iteration as three CUDA graphs, steps 1, 3 and 4, which
+    replay around the eager step 2 (module docstring), with the static
+    buffers they read and write: the loop state `st`, the step `dc`, the
+    Schur system (S, b, vinv6) and the trial point. The three share one
+    memory pool and replay in the order of their capture."""
+
+    def __init__(self, dk, cm, route, config, st0):
+        from bundleadjustment_tpu_torch import kernels
+
+        self.dk, self.cm = dk, cm
+        self.st = LMState(*(x.clone() for x in st0))
+        self.dc = torch.zeros((cm.cam_fixed.shape[0], 6), dtype=st0.cost.dtype,
+                              device=st0.cost.device)
+        self.zero = torch.zeros((), dtype=st0.cost.dtype, device=st0.cost.device)
+        self.fixed = cm.cam_fixed[:, None]
+        pool = torch.cuda.graph_pool_handle()
+        counts = kernels.launch_counts()
+        try:  # a wrapper called while capturing launches nothing
+            schur, (self.S, self.b, self.vinv6) = _capture(
+                lambda: _schur_system(dk, cm, route, True, self.st, _same), pool)
+            trial, self.trial = _capture(
+                lambda: _trial(dk, cm, config, self.st, self.dc, self.vinv6, _same),
+                pool)
+            update, _ = _capture(
+                lambda: _lm_update(self.st, self.trial, config.rtol, out=self.st), pool)
+        finally:
+            kernels.LAUNCHES.update(counts)
+        self.graphs = (schur, trial, update)
+
+    def solve(self, st0, max_iters, span):
+        """`max_iters` replayed iterations from the state `st0`. Returns (the
+        last state, the trial costs [max_iters]), in tensors that no later
+        solve writes."""
+        from bundleadjustment_tpu_torch import kernels
+
+        st = self.st
+        for x, x0 in zip(st, st0):
+            x.copy_(x0)
+        hist = torch.empty((max_iters,), dtype=st.cost.dtype, device=st.cost.device)
+        schur, trial, update = self.graphs
+        with span("ba.graph"):
+            for i in range(max_iters):
+                with span("ba.schur"):
+                    schur.replay()
+                with span("ba.camera_solve"):
+                    _camera_step(self.dk, self.S, self.b, self.fixed, self.zero,
+                                 out=self.dc)
+                with span("ba.eval"):
+                    trial.replay()
+                with span("ba.lm_update"):
+                    update.replay()
+                    hist[i].copy_(self.trial.cost)
+        kernels.LAUNCHES["graph_replay"] += 3 * max_iters
+        return LMState(*(x.clone() for x in st)), hist
+
+
+def _problem_tensors(prob):
+    return (prob.K4, prob.cam_idx, prob.uv, prob.sigma2, prob.valid, prob.cam_fixed,
+            prob.pt_valid)
+
+
+def graph_key(prob, cam_rt6, points, config, ops):
+    """The key of a call (module docstring): what its captured iteration
+    reads by address or bakes in. Each of the problem's tensors by identity,
+    data pointer, `_version` (bumped by every in-place edit), shape and
+    dtype; the start's dtypes; the route; the settings that the graphs take
+    as constants (robust cost, rtol, TF32 in the library's Q Q^T); `ops`."""
+    tensors = _problem_tensors(prob)
+    return (tuple((id(x), x.data_ptr(), x._version, tuple(x.shape), x.dtype)
+                  for x in tensors),
+            prob.uv.device, cam_rt6.dtype, points.dtype,
+            schur_route(prob.cam_idx.shape[1]), bool(config.robust),
+            float(config.rtol), torch.backends.cuda.matmul.allow_tf32, ops)
+
+
+def graph_engages(device, reduce, solver, seen):
+    """The rule of the graphed path: CUDA tensors, one device (no
+    `reduce`), the exact solver, and a key seen in an earlier call."""
+    return (torch.device(device).type == "cuda" and reduce is None
+            and solver == "dense" and seen)
+
+
+class _GraphEntry:
+    """A key's entry: weak references to its problem's tensors and, from the
+    key's second call on, its captured iteration."""
+
+    __slots__ = ("refs", "loop")
+
+    def __init__(self, tensors):
+        self.refs = tuple(weakref.ref(x) for x in tensors)
+        self.loop = None
+
+    def alive(self):
+        return all(r() is not None for r in self.refs)
+
+
+class GraphCache:
+    """The keys of the last `SIZE` graph-eligible calls, oldest first. An
+    entry whose problem has lost a tensor lapses (the key's identities could
+    then be another problem's), and a dropped entry frees its graphs and
+    their pool."""
+
+    SIZE = 4
+
+    def __init__(self):
+        self._entries = OrderedDict()
+
+    def visit(self, key, tensors):
+        """(the key's entry, whether an earlier call made it); makes it the
+        newest."""
+        for k in [k for k, e in self._entries.items() if not e.alive()]:
+            del self._entries[k]
+        entry = self._entries.get(key)
+        if entry is not None:
+            self._entries.move_to_end(key)
+            return entry, True
+        entry = self._entries[key] = _GraphEntry(tensors)
+        while len(self._entries) > self.SIZE:
+            self._entries.popitem(last=False)
+        return entry, False
+
+    def captured(self):
+        """How many of the entries hold a captured iteration."""
+        return sum(e.loop is not None for e in self._entries.values())
+
+    def clear(self):
+        self._entries.clear()
+
+
+GRAPHS = GraphCache()
+
+
 def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
                    ops=None, reduce=None):
     """LM / exact-Schur solve in the dense landmark-major layout.
@@ -373,91 +696,38 @@ def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
     per-camera rows are reduced after every eval. With `config.solver ==
     "pcg"` every route gives way to `_pcg_system` and `schur.pcg` (one
     reduce per matvec) and kernel B without back-substitution.
+
+    A repeated call on one device replays the iteration as CUDA graphs
+    (module docstring); the outputs are the eager path's.
     """
     span = TIMER.phase
     with span("ba.solve"):
         from bundleadjustment_tpu_torch.solvers import dense_kernels
-        from bundleadjustment_tpu_torch.solvers.dense_kernels import _backsub_plain
 
         dk = dense_kernels.KERNEL_OPS if ops is None else ops
         check_solver(config)
-        single = reduce is None
-        if single:
-            reduce = lambda x: x  # noqa: E731
-        cm = _to_cm(prob)
-        K = cm.cam_fixed.shape[0]
-        O, L = cm.cam_t.shape
-        route = schur_route(O)
-        R = aa_to_rotmat(cam_rt6[:, :3]).contiguous()
-        t = cam_rt6[:, 3:].contiguous()
-        Xt = points.T.contiguous()
-        args = (cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t)
-        cost, red, Vu, g_p, W = dk.eval_assemble(*args, R, t, Xt,
-                                                 robust=config.robust)
-        cost, red = reduce(cost), reduce(red)
-        cost0 = cost
-        dev, dt_ = cost.device, cost.dtype
-        lam = torch.tensor(config.lam0, dtype=dt_, device=dev)
-        nu = torch.tensor(2.0, dtype=dt_, device=dev)
-        done = torch.zeros((), dtype=torch.bool, device=dev)
-        fixed = cm.cam_fixed[:, None]
-        zero = torch.zeros((), dtype=dt_, device=dev)
-        hist = []
-        pcg_mode = config.solver == "pcg"
-        for _ in range(config.max_iters):
-            with span("ba.schur"):
-                W18 = W.reshape(18, O, L)
-                if pcg_mode:
-                    matvec, b, U, vinv6 = _pcg_system(lam, red, Vu, g_p, W18, cm,
-                                                      reduce)
-                elif single and route == "s":
-                    S, _zv, vinv6, b = dk.schur_prepare_s(
-                        lam, Vu, g_p, cm.pt_valid, W18, cm.cam_t, K, red,
-                        cm.cam_fixed)
-                else:
-                    S, b, vinv6 = _system_unfolded(dk, route, lam, Vu, g_p, W18,
-                                                   cm, red, reduce)
-            with span("ba.camera_solve"):
-                if pcg_mode:
-                    dc = pcg(matvec, b, block_jacobi(U), config.pcg_iters)
-                else:
-                    # S and b are in (i, k) order: the solution comes back as
-                    # [6, K]
-                    dc = dk.chol_solve(S, b).reshape(6, K).T
-                dc = torch.where(fixed, zero, dc).contiguous()
-            with span("ba.eval"):
-                R_new = (aa_to_rotmat(dc[:, :3]) @ R).contiguous()
-                t_new = (t + dc[:, 3:]).contiguous()
-                if pcg_mode:
-                    Xt_n = _backsub_plain(cm.cam_t, dc, Xt, W18, vinv6, g_p,
-                                          cm.pt_valid).contiguous()
-                    new_cost, red_n, Vu_n, gp_n, W_n = dk.eval_assemble(
-                        *args, R_new, t_new, Xt_n, robust=config.robust)
-                else:
-                    new_cost, red_n, Vu_n, gp_n, W_n, Xt_n = dk.eval_assemble_bs(
-                        *args, R_new, t_new, dc, Xt, W18, vinv6, g_p, cm.pt_valid,
-                        robust=config.robust)
-                new_cost, red_n = reduce(new_cost), reduce(red_n)
-            with span("ba.lm_update"):
-                accept = (new_cost < cost) & torch.isfinite(new_cost)
-                take = accept & ~done
-                rel = (cost - new_cost) / torch.clamp(cost, min=1e-20)
-                R = torch.where(take, R_new, R)
-                t = torch.where(take, t_new, t)
-                Xt = torch.where(take, Xt_n, Xt)
-                lam, nu = (
-                    torch.where(done, lam, torch.where(accept, lam / 3.0, lam * nu)),
-                    torch.where(done, nu, torch.where(accept, torch.full_like(nu, 2.0),
-                                                      nu * 2.0)),
-                )
-                cost = torch.where(take, new_cost, cost)
-                done = done | (accept & (rel < config.rtol))
-                red = torch.where(take, red_n, red)
-                Vu = torch.where(take, Vu_n, Vu)
-                g_p = torch.where(take, gp_n, g_p)
-                W = torch.where(take, W_n, W)
-                hist.append(new_cost)
-        cams_out = torch.cat([rotmat_to_aa(R), t], -1)
-        info = {"cost0": cost0, "cost": cost,
-                "cost_history": torch.stack(hist) if hist else cost[None][:0]}
-        return cams_out, Xt.T, info
+        device = prob.uv.device
+        entry, seen = None, False
+        if graph_engages(device, reduce, config.solver, True):
+            entry, seen = GRAPHS.visit(graph_key(prob, cam_rt6, points, config, dk),
+                                       _problem_tensors(prob))
+        if graph_engages(device, reduce, config.solver, seen):
+            with torch.cuda.device(device):
+                cm = _to_cm(prob) if entry.loop is None else entry.loop.cm
+                st0 = _lm_start(dk, cm, cam_rt6, points, config, _same)
+                if entry.loop is None:
+                    with span("ba.capture"):
+                        entry.loop = _LoopGraphs(dk, cm, schur_route(cm.cam_t.shape[0]),
+                                                 config, st0)
+                st, hist = entry.loop.solve(st0, config.max_iters, span)
+        else:
+            single = reduce is None
+            if single:
+                reduce = _same
+            cm = _to_cm(prob)
+            st0 = _lm_start(dk, cm, cam_rt6, points, config, reduce)
+            st, hist = _solve_eager(dk, cm, schur_route(cm.cam_t.shape[0]), single, st0,
+                                    config, reduce, span)
+        cams_out = torch.cat([rotmat_to_aa(st.R), st.t], -1)
+        info = {"cost0": st0.cost, "cost": st.cost, "cost_history": hist}
+        return cams_out, st.Xt.T, info

@@ -325,9 +325,9 @@ def damped_u(lam, red27, cam_fixed):
     """The LM-damped camera blocks U [K,6,6] and g_c [K,6] from the
     undamped rows red27 [K,27] (the reference's `_damp_U_cm`: identity
     blocks and zero gradients for fixed cameras)."""
-    from bundleadjustment_tpu_torch.solvers.dense_ba import SYM6_IDX
+    from bundleadjustment_tpu_torch.solvers.dense_ba import sym6_index
 
-    U = red27[:, torch.from_numpy(SYM6_IDX).to(red27.device)]  # [K, 6, 6]
+    U = red27[:, sym6_index(red27.device)]  # [K, 6, 6]
     eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
     dU = torch.clamp(torch.diagonal(U, dim1=-2, dim2=-1), min=1e-6)
     U = U + (lam * dU)[..., None] * eye6
