@@ -11,9 +11,20 @@
 //   then, at the (trial) point: projection, sigma-whitened residuals, Huber
 //   weights (delta = sqrt(5.991)), the cheirality penalty (z <= 1e-6) and the
 //   analytic Jacobians (left-multiplicative so(3) camera perturbation).
-// Outputs: the robust cost; red[K][27] = per-camera sums of the 21 upper-
-// triangle U entries and 6 g_c entries; point-side Vu[6][L], g_p[3][L];
-// W[18][O][L]; Xt_new[3][L] (bs = 1).
+// Outputs: the robust cost; red[K][NR] = per-camera sums of the P (P + 1) / 2
+// upper-triangle U entries and P g_c entries; point-side Vu[6][L], g_p[3][L];
+// W[3P][O][L]; Xt_new[3][L] (bs = 1).
+//
+// The camera width P is a template parameter (NR = 27 rows a camera at 6, 54
+// at 9):
+// - P = 6, the pinhole model: rt6 cameras through one shared K4 = (fx, fy,
+//   cx, cy);
+// - P = 9, BAL's camera (dense_ba.CAMERA_WIDTH), in the solve's axes (the
+//   host turns BAL's -z camera into a +z one, dense_ba.bal_axes): intr[K][3]
+//   = (f, k1, k2) a camera, p = P_xy / P_z, n = |p|^2, rd = 1 + k1 n + k2 n^2,
+//   u = f rd p about the principal point; the 2x9 camera Jacobian is the
+//   rotation's and the translation's through d(f rd p)/dp = f (rd I +
+//   2 (k1 + 2 k2 n) p p^T), then rd p, f n p and f n^2 p for f, k1, k2.
 //
 // What bounds it on H100: memory traffic at large L. Per observation it
 // reads ~5 floats of problem data (+18 of W_prev with bs) and writes 18
@@ -62,14 +73,17 @@ namespace {
 
 constexpr float kHuber = 2.4477f;
 constexpr float kCheirality = 1.0e4f;
-constexpr int kRed = 27;
 constexpr int kParts = 16;    // dense_eval_finish: partial sums an entry
 constexpr int kEntries = 16;  // dense_eval_finish: entries a block
 constexpr int kMaxSmem = 232448;
 
-template <bool kBS>
+// rows of red a camera at camera width P
+__host__ __device__ constexpr int n_red(int P) { return P * (P + 1) / 2 + P; }
+
+template <bool kBS, int kP>
 __global__ void dense_eval_units(
-    const float* __restrict__ k4, const float* __restrict__ R,
+    const float* __restrict__ k4, const float* __restrict__ intr,
+    const float* __restrict__ R,
     const float* __restrict__ t, const float* __restrict__ dc,
     const int* __restrict__ cam_t, const float* __restrict__ uv_t,
     const float* __restrict__ isig_t, const uint8_t* __restrict__ valid_t,
@@ -79,12 +93,13 @@ __global__ void dense_eval_units(
     int O, int L, int robust, int lanes_log2, int tile, float* __restrict__ slab,
     float* __restrict__ vu_out, float* __restrict__ gp_out,
     float* __restrict__ w_out, float* __restrict__ xt_new) {
-  extern __shared__ float smem[];  // [warps][tile * 27] tables, [warps] costs
+  constexpr int kRed = n_red(kP);
+  extern __shared__ float smem[];  // [warps][tile * kRed] tables, [warps] costs
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwb = blockDim.x >> 5;
-  const int T27 = tile * kRed;
-  float* table = smem + warp * T27;
-  for (int e = lane; e < T27; e += 32) table[e] = 0.f;
+  const int TR = tile * kRed;
+  float* table = smem + warp * TR;
+  for (int e = lane; e < TR; e += 32) table[e] = 0.f;
   __syncwarp();
 
   const int S = 1 << lanes_log2, G = 32 >> lanes_log2;
@@ -110,12 +125,12 @@ __global__ void dense_eval_units(
       if (act) {
         for (int o = s; o < O; o += S) {
           const long long q = (long long)o * L + l;
-          const float* d = dc + 6 * cam_t[q];
+          const float* d = dc + kP * cam_t[q];
 #pragma unroll
           for (int j = 0; j < 3; ++j) {
             float acc = 0.f;
 #pragma unroll
-            for (int i = 0; i < 6; ++i) acc += w_prev[(i * 3 + j) * OL + q] * d[i];
+            for (int i = 0; i < kP; ++i) acc += w_prev[(i * 3 + j) * OL + q] * d[i];
             y[j] += acc;
           }
         }
@@ -154,7 +169,7 @@ __global__ void dense_eval_units(
       for (int n = 0; n < kRed; ++n) rows[n] = 0.f;
       if (live && !valid && primary) {
 #pragma unroll
-        for (int c = 0; c < 18; ++c) w_out[c * OL + q] = 0.f;
+        for (int c = 0; c < 3 * kP; ++c) w_out[c * OL + q] = 0.f;
       }
       const int cam = valid ? cam_t[q] : -1;
       const bool in_tile = cam >= cam0 && cam < cam0 + tile;
@@ -171,8 +186,23 @@ __global__ void dense_eval_units(
         const float zs = fabsf(z) < 1e-9f ? 1e-9f : z;
         const float inv_z = 1.f / zs;
         const float isig = isig_t[q];
-        float r0 = (fx * x0 * inv_z + cx - uv_t[q]) * isig;
-        float r1 = (fy * x1 * inv_z + cy - uv_t[OL + q]) * isig;
+        float r0, r1;
+        float px = 0.f, py = 0.f, n2 = 0.f, rd = 0.f, f = 0.f, k1 = 0.f, k2 = 0.f;
+        if (kP == 6) {
+          r0 = (fx * x0 * inv_z + cx - uv_t[q]) * isig;
+          r1 = (fy * x1 * inv_z + cy - uv_t[OL + q]) * isig;
+        } else {
+          f = intr[3 * cam];
+          k1 = intr[3 * cam + 1];
+          k2 = intr[3 * cam + 2];
+          px = x0 * inv_z;
+          py = x1 * inv_z;
+          n2 = px * px + py * py;
+          rd = 1.f + n2 * (k1 + k2 * n2);
+          const float fr = f * rd;
+          r0 = (fr * px - uv_t[q]) * isig;
+          r1 = (fr * py - uv_t[OL + q]) * isig;
+        }
         const float r2 = r0 * r0 + r1 * r1;
         float rho;
         if (robust) {
@@ -192,12 +222,32 @@ __global__ void dense_eval_units(
         r1 *= sw * (front ? 1.f : 0.f);
         const float sw_free = fixed_t[q] ? 0.f : sw;
 
-        const float a = fx * inv_z * isig;
-        const float b = fy * inv_z * isig;
-        const float duv[2][3] = {{a, 0.f, -a * x0 * inv_z}, {0.f, b, -b * x1 * inv_z}};
+        float duv[2][3];
+        if (kP == 6) {
+          const float a = fx * inv_z * isig;
+          const float b = fy * inv_z * isig;
+          duv[0][0] = a;
+          duv[0][1] = 0.f;
+          duv[0][2] = -a * x0 * inv_z;
+          duv[1][0] = 0.f;
+          duv[1][1] = b;
+          duv[1][2] = -b * x1 * inv_z;
+        } else {
+          const float c = 2.f * (k1 + 2.f * k2 * n2);
+          const float fi = f * isig;
+          const float a00 = fi * (rd + c * px * px);
+          const float a01 = fi * (c * px * py);
+          const float a11 = fi * (rd + c * py * py);
+          duv[0][0] = a00 * inv_z;
+          duv[0][1] = a01 * inv_z;
+          duv[0][2] = -(a00 * px + a01 * py) * inv_z;
+          duv[1][0] = a01 * inv_z;
+          duv[1][1] = a11 * inv_z;
+          duv[1][2] = -(a01 * px + a11 * py) * inv_z;
+        }
         const float ns[3][3] = {{0.f, RX[2], -RX[1]}, {-RX[2], 0.f, RX[0]},
                                 {RX[1], -RX[0], 0.f}};
-        float Jc[2][6], Jp[2][3];
+        float Jc[2][kP], Jp[2][3];
 #pragma unroll
         for (int al = 0; al < 2; ++al) {
 #pragma unroll
@@ -209,16 +259,24 @@ __global__ void dense_eval_units(
                          duv[al][2] * Rc[6 + j]) * sw;
           }
         }
+        if (kP == 9) {  // f, k1, k2: rd p, f n p, f n^2 p
+          const float ji[3] = {rd * isig, f * n2 * isig, f * n2 * n2 * isig};
+#pragma unroll
+          for (int m = 0; m < 3; ++m) {
+            Jc[0][6 + m] = ji[m] * px * sw_free;
+            Jc[1][6 + m] = ji[m] * py * sw_free;
+          }
+        }
         if (in_tile && sw_free != 0.f) {  // fixed cameras' rows are exactly zero
           key = cam - cam0;
           int n = 0;
 #pragma unroll
-          for (int i = 0; i < 6; ++i)
+          for (int i = 0; i < kP; ++i)
 #pragma unroll
-            for (int j = i; j < 6; ++j, ++n)
+            for (int j = i; j < kP; ++j, ++n)
               rows[n] = Jc[0][i] * Jc[0][j] + Jc[1][i] * Jc[1][j];
 #pragma unroll
-          for (int i = 0; i < 6; ++i) rows[21 + i] = Jc[0][i] * r0 + Jc[1][i] * r1;
+          for (int i = 0; i < kP; ++i) rows[n + i] = Jc[0][i] * r0 + Jc[1][i] * r1;
         }
         if (primary) {
           my_cost += front ? rho : kCheirality;
@@ -231,7 +289,7 @@ __global__ void dense_eval_units(
 #pragma unroll
           for (int i = 0; i < 3; ++i) gp[i] += Jp[0][i] * r0 + Jp[1][i] * r1;
 #pragma unroll
-          for (int i = 0; i < 6; ++i)
+          for (int i = 0; i < kP; ++i)
 #pragma unroll
             for (int j = 0; j < 3; ++j)
               w_out[(i * 3 + j) * OL + q] = Jc[0][i] * Jp[0][j] + Jc[1][i] * Jp[1][j];
@@ -259,50 +317,51 @@ __global__ void dense_eval_units(
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     my_cost += __shfl_down_sync(kFull, my_cost, off);
-  float* wcost = smem + nwb * T27;
+  float* wcost = smem + nwb * TR;
   if (lane == 0) wcost[warp] = my_cost;
   __syncthreads();
-  float* out = slab + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * (T27 + 1);
-  for (int e = threadIdx.x; e < T27; e += blockDim.x) {
+  float* out = slab + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * (TR + 1);
+  for (int e = threadIdx.x; e < TR; e += blockDim.x) {
     float acc = smem[e];
-    for (int w = 1; w < nwb; ++w) acc += smem[w * T27 + e];
+    for (int w = 1; w < nwb; ++w) acc += smem[w * TR + e];
     out[e] = acc;
   }
   if (threadIdx.x == 0) {
     float c = wcost[0];
     for (int w = 1; w < nwb; ++w) c += wcost[w];
-    out[T27] = c;
+    out[TR] = c;
   }
 }
 
 // red[k][n] and cost: entry e of the slabs of every block of its tile, in
 // kParts strided partial sums (block b in part b % kParts, in increasing b),
 // then the parts in order.
+template <int kRed>
 __global__ void dense_eval_finish(const float* __restrict__ slab, int blocks,
                                   int tile, int K, float* __restrict__ red,
                                   float* __restrict__ cost) {
   __shared__ float part[kParts][kEntries];
   const int el = threadIdx.x % kEntries, p = threadIdx.x / kEntries;
   const int e = blockIdx.x * kEntries + el;
-  const int T27 = tile * kRed, n_red = K * kRed;
+  const int TR = tile * kRed, n_all = K * kRed;
   float acc = 0.f;
-  if (e <= n_red) {
-    int j = 0, off = T27;  // the cost
-    if (e < n_red) {
+  if (e <= n_all) {
+    int j = 0, off = TR;  // the cost
+    if (e < n_all) {
       const int k = e / kRed;
       j = k / tile;
       off = (k - j * tile) * kRed + e % kRed;
     }
-    const float* base = slab + (long long)j * blocks * (T27 + 1) + off;
+    const float* base = slab + (long long)j * blocks * (TR + 1) + off;
 #pragma unroll 8
-    for (int b = p; b < blocks; b += kParts) acc += base[(long long)b * (T27 + 1)];
+    for (int b = p; b < blocks; b += kParts) acc += base[(long long)b * (TR + 1)];
   }
   part[p][el] = acc;
   __syncthreads();
-  if (p == 0 && e <= n_red) {
+  if (p == 0 && e <= n_all) {
     float sum = part[0][el];
     for (int i = 1; i < kParts; ++i) sum += part[i][el];
-    if (e < n_red) red[e] = sum;
+    if (e < n_all) red[e] = sum;
     else *cost = sum;
   }
 }
@@ -311,6 +370,7 @@ __global__ void dense_eval_finish(const float* __restrict__ slab, int blocks,
 // landmark, its slots summed lane by lane, then over the lanes by xor
 // shuffles), so Xt_new has the same bits as the fused kernel's: the back-
 // substitution pass of the camera-tiled case.
+template <int kP>
 __global__ void dense_eval_backsub(const float* __restrict__ dc,
                                    const int* __restrict__ cam_t,
                                    const float* __restrict__ Xt,
@@ -329,12 +389,12 @@ __global__ void dense_eval_backsub(const float* __restrict__ dc,
   if (act) {
     for (int o = s; o < O; o += S) {
       const long long q = (long long)o * L + l;
-      const float* d = dc + 6 * cam_t[q];
+      const float* d = dc + kP * cam_t[q];
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         float acc = 0.f;
 #pragma unroll
-        for (int i = 0; i < 6; ++i) acc += w_prev[(i * 3 + j) * OL + q] * d[i];
+        for (int i = 0; i < kP; ++i) acc += w_prev[(i * 3 + j) * OL + q] * d[i];
         y[j] += acc;
       }
     }
@@ -358,41 +418,37 @@ __global__ void dense_eval_backsub(const float* __restrict__ dc,
   xt_new[2 * L + l] = X2;
 }
 
-template <bool kBS>
+template <bool kBS, int kP>
 int launch_units(dim3 grid, int threads, size_t smem, cudaStream_t s,
-                 const float* k4, const float* R, const float* t, const float* dc,
-                 const int* cam_t, const float* uv_t, const float* isig_t,
-                 const uint8_t* valid_t, const uint8_t* fixed_t, const float* Xt,
-                 const float* w_prev, const float* vinv6, const float* gp_prev,
-                 const uint8_t* pt_valid, int O, int L, int robust, int lanes_log2,
-                 int tile, float* slab, float* vu, float* gp, float* w,
-                 float* xt_new) {
+                 const float* k4, const float* intr, const float* R, const float* t,
+                 const float* dc, const int* cam_t, const float* uv_t,
+                 const float* isig_t, const uint8_t* valid_t, const uint8_t* fixed_t,
+                 const float* Xt, const float* w_prev, const float* vinv6,
+                 const float* gp_prev, const uint8_t* pt_valid, int O, int L,
+                 int robust, int lanes_log2, int tile, float* slab, float* vu,
+                 float* gp, float* w, float* xt_new) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dense_eval_units<kBS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        dense_eval_units<kBS, kP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dense_eval_units<kBS><<<grid, threads, smem, s>>>(
-      k4, R, t, dc, cam_t, uv_t, isig_t, valid_t, fixed_t, Xt, w_prev, vinv6,
+  dense_eval_units<kBS, kP><<<grid, threads, smem, s>>>(
+      k4, intr, R, t, dc, cam_t, uv_t, isig_t, valid_t, fixed_t, Xt, w_prev, vinv6,
       gp_prev, pt_valid, O, L, robust, lanes_log2, tile, slab, vu, gp, w, xt_new);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// The plan's numbers (dense_kernels.dense_eval_plan): lanes_log2 = log2 S,
-// warps a block, blocks (grid.x; 0 when L = 0), tile T, n_tiles (grid.y);
-// slab holds n_tiles * blocks * (27 T + 1) floats.
-extern "C" int dense_eval_assemble(
-    const void* k4, const void* R, const void* t, const void* dc,
-    const void* cam_t, const void* uv_t, const void* isig_t,
-    const void* valid_t, const void* fixed_t, const void* Xt,
-    const void* w_prev, const void* vinv6, const void* gp_prev,
-    const void* pt_valid, int O, int L, int K, int robust, int bs,
-    int lanes_log2, int warps, int blocks, int tile, int n_tiles, void* slab,
-    void* red, void* cost, void* vu, void* gp, void* w, void* xt_new,
-    void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+template <int kP>
+int launch(const float* k4, const float* intr, const float* R, const float* t,
+           const float* dc, const int* cam_t, const float* uv_t, const float* isig_t,
+           const uint8_t* valid_t, const uint8_t* fixed_t, const float* Xt,
+           const float* w_prev, const float* vinv6, const float* gp_prev,
+           const uint8_t* pt_valid, int O, int L, int K, int robust, int bs,
+           int lanes_log2, int warps, int blocks, int tile, int n_tiles, float* slab,
+           float* red, float* cost, float* vu, float* gp, float* w, float* xt_new,
+           cudaStream_t s) {
+  constexpr int kRed = n_red(kP);
   if (blocks > 0 && L > 0) {
     const size_t smem = ((size_t)warps * tile * kRed + warps) * sizeof(float);
     if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -401,35 +457,54 @@ extern "C" int dense_eval_assemble(
       // every tile needs the trial landmarks: form them once, then evaluate
       // there as the seed eval does
       const int units = (L + (32 >> lanes_log2) - 1) / (32 >> lanes_log2);
-      dense_eval_backsub<<<(units + 3) / 4, 128, 0, s>>>(
-          (const float*)dc, (const int*)cam_t, (const float*)Xt,
-          (const float*)w_prev, (const float*)vinv6, (const float*)gp_prev,
-          (const uint8_t*)pt_valid, O, L, lanes_log2, (float*)xt_new);
+      dense_eval_backsub<kP><<<(units + 3) / 4, 128, 0, s>>>(
+          dc, cam_t, Xt, w_prev, vinv6, gp_prev, pt_valid, O, L, lanes_log2, xt_new);
       Xt = xt_new;
       bs = 0;
     }
     const int code =
-        bs ? launch_units<true>(
-                 grid, warps * 32, smem, s, (const float*)k4, (const float*)R,
-                 (const float*)t, (const float*)dc, (const int*)cam_t,
-                 (const float*)uv_t, (const float*)isig_t, (const uint8_t*)valid_t,
-                 (const uint8_t*)fixed_t, (const float*)Xt, (const float*)w_prev,
-                 (const float*)vinv6, (const float*)gp_prev,
-                 (const uint8_t*)pt_valid, O, L, robust, lanes_log2, tile,
-                 (float*)slab, (float*)vu, (float*)gp, (float*)w, (float*)xt_new)
-           : launch_units<false>(
-                 grid, warps * 32, smem, s, (const float*)k4, (const float*)R,
-                 (const float*)t, nullptr, (const int*)cam_t, (const float*)uv_t,
-                 (const float*)isig_t, (const uint8_t*)valid_t,
-                 (const uint8_t*)fixed_t, (const float*)Xt, nullptr, nullptr,
-                 nullptr, nullptr, O, L, robust, lanes_log2, tile, (float*)slab,
-                 (float*)vu, (float*)gp, (float*)w, nullptr);
+        bs ? launch_units<true, kP>(grid, warps * 32, smem, s, k4, intr, R, t, dc,
+                                    cam_t, uv_t, isig_t, valid_t, fixed_t, Xt, w_prev,
+                                    vinv6, gp_prev, pt_valid, O, L, robust, lanes_log2,
+                                    tile, slab, vu, gp, w, xt_new)
+           : launch_units<false, kP>(grid, warps * 32, smem, s, k4, intr, R, t,
+                                     nullptr, cam_t, uv_t, isig_t, valid_t, fixed_t,
+                                     Xt, nullptr, nullptr, nullptr, nullptr, O, L,
+                                     robust, lanes_log2, tile, slab, vu, gp, w,
+                                     nullptr);
     if (code != 0) return code;
   } else {
     blocks = 0;  // nothing to sum: red and cost are written as zeros
   }
   const int entries = K * kRed + 1;
-  dense_eval_finish<<<(entries + kEntries - 1) / kEntries, kParts * kEntries, 0, s>>>(
-      (const float*)slab, blocks, tile, K, (float*)red, (float*)cost);
+  dense_eval_finish<kRed><<<(entries + kEntries - 1) / kEntries, kParts * kEntries, 0, s>>>(
+      slab, blocks, tile, K, red, cost);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The plan's numbers (dense_kernels.dense_eval_plan): lanes_log2 = log2 S,
+// warps a block, blocks (grid.x; 0 when L = 0), tile T, n_tiles (grid.y);
+// slab holds n_tiles * blocks * (NR T + 1) floats. width: 6 (the pinhole
+// K4, intr null) or 9 (intr [K][3]).
+extern "C" int dense_eval_assemble(
+    const void* k4, const void* intr, const void* R, const void* t, const void* dc,
+    const void* cam_t, const void* uv_t, const void* isig_t,
+    const void* valid_t, const void* fixed_t, const void* Xt,
+    const void* w_prev, const void* vinv6, const void* gp_prev,
+    const void* pt_valid, int O, int L, int K, int width, int robust, int bs,
+    int lanes_log2, int warps, int blocks, int tile, int n_tiles, void* slab,
+    void* red, void* cost, void* vu, void* gp, void* w, void* xt_new,
+    void* stream) {
+  if (width != 6 && !(width == 9 && intr != nullptr)) return (int)cudaErrorInvalidValue;
+  auto run = width == 6 ? launch<6> : launch<9>;
+  return run((const float*)k4, (const float*)intr, (const float*)R, (const float*)t,
+             (const float*)dc, (const int*)cam_t, (const float*)uv_t,
+             (const float*)isig_t, (const uint8_t*)valid_t, (const uint8_t*)fixed_t,
+             (const float*)Xt, (const float*)w_prev, (const float*)vinv6,
+             (const float*)gp_prev, (const uint8_t*)pt_valid, O, L, K, robust, bs,
+             lanes_log2, warps, blocks, tile, n_tiles, (float*)slab, (float*)red,
+             (float*)cost, (float*)vu, (float*)gp, (float*)w, (float*)xt_new,
+             (cudaStream_t)stream);
 }

@@ -2,7 +2,7 @@
 // kernel D (schur_prepare.cu): the damped point block, its closed-form
 // inverse, the lower Cholesky factor of the inverse, zv = V^-1 g_p
 // (point_solve; point_store writes V^-1 and zv), and G_o = W_o chol(V^-1)
-// for one observation slot. The formulas and their
+// for one observation slot, at a camera width of 6 or 9 (W_o 6x3 or 9x3). The formulas and their
 // operation order are those of the reference's _schur_kernel /
 // _schur_s_kernel (bundleadjustment_tpu/solvers/pallas_dense_eval.py) and of
 // the plain PyTorch version (`_point_prepare_plain` in
@@ -85,33 +85,35 @@ __device__ __forceinline__ PointPrep point_prepare(
   return p;
 }
 
-// G = W C for one slot's W (18 values). Returns whether any W value is
-// non-zero (an all-zero slot, invalid or of a fixed camera, adds exactly
-// zero to every sum).
-__device__ __forceinline__ bool w_g(const float W[18], const float C[3][3],
-                                    float G[6][3]) {
+// G = W C for one slot's W (3 kP values: a camera width of kP). Returns
+// whether any W value is non-zero (an all-zero slot, invalid or of a fixed
+// camera, adds exactly zero to every sum).
+template <int kP = 6>
+__device__ __forceinline__ bool w_g(const float* W, const float C[3][3],
+                                    float (*G)[3]) {
   bool any = false;
 #pragma unroll
-  for (int c = 0; c < 18; ++c) any |= W[c] != 0.f;
+  for (int c = 0; c < 3 * kP; ++c) any |= W[c] != 0.f;
 #pragma unroll
-  for (int i = 0; i < 6; ++i)
+  for (int i = 0; i < kP; ++i)
 #pragma unroll
     for (int m = 0; m < 3; ++m)
       G[i][m] = W[i * 3] * C[0][m] + W[i * 3 + 1] * C[1][m] + W[i * 3 + 2] * C[2][m];
   return any;
 }
 
-// W_o (18 values of slot s of W18 [18][O*L]) into W; G = W C (w_g).
+// W_o (3 kP values of slot s of W [3 kP][O*L]) into W; G = W C (w_g).
+template <int kP = 6>
 __device__ __forceinline__ bool load_w_g(const float* __restrict__ W18,
                                          long long OL, long long s,
-                                         const float C[3][3], float W[18],
-                                         float G[6][3]) {
+                                         const float C[3][3], float* W,
+                                         float (*G)[3]) {
 #pragma unroll
-  for (int c = 0; c < 18; ++c) W[c] = W18[c * OL + s];
-  return w_g(W, C, G);
+  for (int c = 0; c < 3 * kP; ++c) W[c] = W18[c * OL + s];
+  return w_g<kP>(W, C, G);
 }
 
-// (W_o zv)_i for i < 6: the slot's term of the camera rhs rows.
-__device__ __forceinline__ float w_zv(const float W[18], const float zv[3], int i) {
+// (W_o zv)_i for i < kP: the slot's term of the camera rhs rows.
+__device__ __forceinline__ float w_zv(const float* W, const float zv[3], int i) {
   return W[i * 3] * zv[0] + W[i * 3 + 1] * zv[1] + W[i * 3 + 2] * zv[2];
 }

@@ -61,3 +61,17 @@ def pixel_grid(height, width, dtype=torch.float32, device="cuda"):
                           torch.arange(width, dtype=dtype, device=device),
                           indexing="ij")
     return torch.stack([u, v], -1)
+
+
+def project_bal(cams9, x_world):
+    """Snavely's projection of BAL's camera (Agarwal et al., ECCV 2010):
+    cameras [..., 9] = (axis-angle w, t, f, k1, k2), world points [..., 3]
+    -> (uv [..., 2] in pixels about the principal point, depth [...]).
+    P = R(w) X + t; the camera looks down -z, so p = -P_xy / P_z and the
+    depth is -P_z; uv = f (1 + k1 |p|^2 + k2 |p|^4) p."""
+    R = aa_to_rotmat(cams9[..., :3])
+    P = (R @ x_world[..., None])[..., 0] + cams9[..., 3:6]
+    p = -P[..., :2] / P[..., 2:3]
+    n2 = (p * p).sum(-1, keepdim=True)
+    r = 1.0 + cams9[..., 7:8] * n2 + cams9[..., 8:9] * n2 * n2
+    return cams9[..., 6:7] * r * p, -P[..., 2]

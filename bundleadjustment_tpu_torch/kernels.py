@@ -50,19 +50,19 @@ SIGNATURES = {
         "hamming_top2": [P, I64, P, P] + [I32] * 5 + [P] * 5,
     },
     "dense_eval": {
-        # k4, R, t, dc, cam_t, uv_t, isig_t, valid_t, fixed_t, Xt,
-        # W_prev, vinv6, gp_prev, pt_valid, O, L, K, robust, bs,
+        # k4, intr, R, t, dc, cam_t, uv_t, isig_t, valid_t, fixed_t, Xt,
+        # W_prev, vinv6, gp_prev, pt_valid, O, L, K, width, robust, bs,
         # lanes_log2, warps, blocks, tile, n_tiles,
         # slab, red, cost, Vu, g_p, W, Xt_new, stream
-        "dense_eval_assemble": [P] * 14 + [I32] * 10 + [P] * 8,
+        "dense_eval_assemble": [P] * 15 + [I32] * 11 + [P] * 8,
     },
     "schur_s": {
-        # lam, red27, cam_fixed, Vu, g_p, pt_valid, W18, cam_t, O, L, K,
-        # tile, chunks, slots, Sp, Rp, S, b, zv, vinv6, stream
-        "schur_prepare_s": [P] * 8 + [I32] * 6 + [P] * 7,
-        # lam, Vu, g_p, pt_valid, W18, cam_t, O, L, K, tile, chunks, slots,
-        # Sp, Rp, S, red6, zv, vinv6, stream
-        "schur_qqt_partial": [P] * 6 + [I32] * 6 + [P] * 7,
+        # lam, red27, cam_fixed, Vu, g_p, pt_valid, W18, cam_t, valid_t, O,
+        # L, K, width, tile, chunks, slots, Sp, Rp, S, b, zv, vinv6, stream
+        "schur_prepare_s": [P] * 9 + [I32] * 7 + [P] * 7,
+        # lam, Vu, g_p, pt_valid, W18, cam_t, valid_t, O, L, K, width, tile,
+        # chunks, slots, Sp, Rp, S, red6, zv, vinv6, stream
+        "schur_qqt_partial": [P] * 7 + [I32] * 7 + [P] * 7,
     },
     "schur_prepare": {
         # lam, Vu, g_p, pt_valid, W18, cam_t, O, L, K, slots, chunks,

@@ -32,6 +32,15 @@ the landmark back-substitution in PyTorch, then kernel B without the
 back-substitution (`eval_assemble`) at the trial point. It launches no C,
 K5, D or E.
 
+Two camera models (`CAMERA_WIDTH`), which the problem carries: "pinhole"
+(rt6 cameras through the problem's one K4) and "bal" (BAL's nine
+parameters, the focal length and two radial terms of each camera among the
+unknowns). The camera width P (6 or 9) sets the camera rows of kernel B
+(P (P + 1) / 2 + P a camera), W [P, 3, O, L], the PxP blocks of kernel C's S
+and the camera system's N = P K. A "bal" problem runs route (s) on one
+device, eager or graphed, PCG and either camera-system solve; route (c)
+and the sharded engine refuse it (`check_route`).
+
 The LM semantics are the reference's: a fixed `max_iters`, state frozen once
 `done` is set, lambda / 3 on accept and lambda * nu on reject. Kernel B seeds
 the loop without the back-substitution. On CPU tensors both kernels run
@@ -99,15 +108,36 @@ from bundleadjustment_tpu_torch.solvers.schur import block_jacobi, pcg
 from bundleadjustment_tpu_torch.utils.profiling import PhaseTimer
 
 
+# The camera models and their parameters a camera (the camera width P):
+# - "pinhole": world-to-camera axis-angle and translation (rt6), every camera
+#   through the problem's one pinhole K4 = [fx, fy, cx, cy], which the solve
+#   holds fixed;
+# - "bal": the nine parameters of a camera of the BAL files (Agarwal et al.,
+#   "Bundle Adjustment in the Large", ECCV 2010) and of Ceres's
+#   SnavelyReprojectionError: axis-angle w, translation t, focal f and
+#   radial k1, k2, all of them unknowns. P = R(w) X + t, p = -P_xy / P_z (the
+#   camera looks down -z), u = f (1 + k1 |p|^2 + k2 |p|^4) p, in pixels about
+#   the principal point; K4 is unused.
+CAMERA_WIDTH = {"pinhole": 6, "bal": 9}
+
+
+def camera_width(model):
+    """The parameters a camera of `model` (a key of CAMERA_WIDTH)."""
+    if model not in CAMERA_WIDTH:
+        raise ValueError(f"camera model {model!r}: one of {sorted(CAMERA_WIDTH)}")
+    return CAMERA_WIDTH[model]
+
+
 @dataclass
 class DenseBAProblem:
-    K4: torch.Tensor  # [4]
+    K4: torch.Tensor  # [4] (the pinhole model's; unused by "bal")
     cam_idx: torch.Tensor  # [L, O] int32
     uv: torch.Tensor  # [L, O, 2]
     sigma2: torch.Tensor  # [L, O]
     valid: torch.Tensor  # [L, O] bool
     cam_fixed: torch.Tensor  # [K] bool
     pt_valid: torch.Tensor  # [L] bool
+    camera_model: str = "pinhole"  # a key of CAMERA_WIDTH
 
 
 def densify_numpy(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
@@ -116,8 +146,11 @@ def densify_numpy(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
 
     Observations beyond `max_obs` per landmark are dropped; the O axis is
     trimmed to the slots actually used (rounded up to a multiple of 8).
-    Returns (dict of numpy arrays with DenseBAProblem's fields, n_dropped).
+    Returns (dict of numpy arrays with DenseBAProblem's tensor fields,
+    n_dropped). K4 None (a model without shared intrinsics) stores zeros.
     """
+    if K4 is None:
+        K4 = np.zeros(4, np.float32)
     cam_idx = np.asarray(cam_idx)
     pt_idx = np.asarray(pt_idx)
     uv = np.asarray(uv)
@@ -155,30 +188,36 @@ def densify_numpy(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
     return arrays, dropped
 
 
-def to_problem(arrays, device):
+def to_problem(arrays, device, camera_model="pinhole"):
     """numpy dict (from `densify_numpy`) -> DenseBAProblem on `device`."""
+    camera_width(camera_model)
     device = resolve_device(device)
     return DenseBAProblem(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                             for k, v in arrays.items()})
+                             for k, v in arrays.items()}, camera_model=camera_model)
 
 
 def densify_problem(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
-                    n_points, max_obs=16, device="cuda"):
-    """`densify_numpy` returning tensors: (DenseBAProblem, n_dropped)."""
+                    n_points, max_obs=16, device="cuda", camera_model="pinhole"):
+    """`densify_numpy` returning tensors: (DenseBAProblem, n_dropped).
+    `camera_model="bal"` takes K4 None and BAL's observations: pixels about
+    the principal point, in BAL's axes (CAMERA_WIDTH)."""
+    camera_width(camera_model)
     arrays, dropped = densify_numpy(K4, cam_idx, pt_idx, uv, sigma2, valid,
                                     cam_fixed, n_points, max_obs)
-    return to_problem(arrays, device), dropped
+    return to_problem(arrays, device, camera_model), dropped
 
 
 def densify_problem_auto(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
-                         n_points, max_obs=16, max_obs_cap=512, device="cuda"):
+                         n_points, max_obs=16, max_obs_cap=512, device="cuda",
+                         camera_model="pinhole"):
     """`densify_problem` with max_obs doubled (up to max_obs_cap) until no
     observation is dropped. Returns (DenseBAProblem, n_dropped, O)."""
+    camera_width(camera_model)
     while True:
         arrays, dropped = densify_numpy(K4, cam_idx, pt_idx, uv, sigma2, valid,
                                         cam_fixed, n_points, max_obs)
         if dropped == 0 or max_obs >= max_obs_cap:
-            return (to_problem(arrays, device), dropped,
+            return (to_problem(arrays, device, camera_model), dropped,
                     int(arrays["cam_idx"].shape[1]))
         max_obs *= 2
 
@@ -200,45 +239,104 @@ class _CM:
     fixed_t: torch.Tensor  # [O, L] bool (the observation's camera is fixed)
     cam_fixed: torch.Tensor  # [K] bool
     pt_valid: torch.Tensor  # [L] bool
+    width: int = 6  # the camera width P (CAMERA_WIDTH)
 
 
 def _to_cm(prob: DenseBAProblem) -> _CM:
+    """The solve's layout. A "bal" problem's pixels are taken into the
+    solve's axes (`bal_axes`): u_x negated."""
     sigma2 = torch.clamp(prob.sigma2, min=1e-12)
+    uv_t = prob.uv.permute(2, 1, 0).contiguous()
+    width = camera_width(prob.camera_model)
+    if width == 9:
+        uv_t = torch.stack([-uv_t[0], uv_t[1]])
     return _CM(
         K4=prob.K4.contiguous(),
         cam_t=prob.cam_idx.T.contiguous(),
-        uv_t=prob.uv.permute(2, 1, 0).contiguous(),
+        uv_t=uv_t,
         inv_sigma_t=(1.0 / torch.sqrt(sigma2)).T.contiguous(),
         valid_t=prob.valid.T.contiguous(),
         fixed_t=prob.cam_fixed[prob.cam_idx.long()].T.contiguous(),
         cam_fixed=prob.cam_fixed.contiguous(),
         pt_valid=prob.pt_valid.contiguous(),
+        width=width,
     )
 
 
-TRIU6 = [(i, j) for i in range(6) for j in range(i, 6)]  # 21 entries
-TRIU3 = [(i, j) for i in range(3) for j in range(i, 3)]  # 6 entries
-SYM6_IDX = np.zeros((6, 6), np.int64)
-for _n, (_i, _j) in enumerate(TRIU6):
-    SYM6_IDX[_i, _j] = SYM6_IDX[_j, _i] = _n
-SYM3_IDX = np.zeros((3, 3), np.int64)
-for _n, (_i, _j) in enumerate(TRIU3):
-    SYM3_IDX[_i, _j] = SYM3_IDX[_j, _i] = _n
+def bal_axes(R, t):
+    """BAL's camera axes <-> the solve's (an involution): R' = F R, t' = F t
+    with F = diag(-1, 1, -1), a half turn about y. A camera point P' = F P
+    lies at depth -P_z > 0 in front of a BAL camera, so the solve keeps its
+    +z projection and cheirality test: P'_xy / P'_z = (-p_x, p_y) for BAL's
+    p = -P_xy / P_z, and the residual f r(|p|) (-p_x, p_y) - (-u_x, u_y) is
+    BAL's with its x component negated, the same cost."""
+    R = torch.stack([-R[..., 0, :], R[..., 1, :], -R[..., 2, :]], -2)
+    t = torch.stack([-t[..., 0], t[..., 1], -t[..., 2]], -1)
+    return R, t
+
+
+def log_rotation(R):
+    """Rotation matrices [..., 3, 3] -> axis-angle [..., 3], accurate at
+    every angle up to pi (BAL's cameras face every way): the angle by
+    atan2(|v|, cos), v the antisymmetric part's vector; past 2 pi / 3 the
+    axis from the symmetric part's largest column, signed along v. Computed
+    in float64, returned in R's dtype."""
+    R64 = R.double()
+    cos = ((R64[..., 0, 0] + R64[..., 1, 1] + R64[..., 2, 2] - 1.0) * 0.5).clamp(-1.0, 1.0)
+    v = 0.5 * torch.stack([R64[..., 2, 1] - R64[..., 1, 2], R64[..., 0, 2] - R64[..., 2, 0],
+                           R64[..., 1, 0] - R64[..., 0, 1]], -1)
+    sin = torch.linalg.norm(v, dim=-1)
+    theta = torch.atan2(sin, cos)
+    near_zero = v * torch.where(sin > 1e-12, theta / sin.clamp(min=1e-300),
+                                torch.ones_like(sin))[..., None]
+    B = 0.5 * (R64 + R64.transpose(-1, -2)) - cos[..., None, None] * torch.eye(
+        3, dtype=R64.dtype, device=R64.device)  # (1 - cos) k k^T
+    j = torch.argmax(torch.diagonal(B, dim1=-2, dim2=-1), -1)
+    col = torch.gather(B, -1, j[..., None, None].expand(*B.shape[:-1], 1))[..., 0]
+    k = col / torch.linalg.norm(col, dim=-1, keepdim=True).clamp(min=1e-300)
+    k = torch.where(((k * v).sum(-1) < 0)[..., None], -k, k)
+    return torch.where((cos < -0.5)[..., None], k * theta[..., None], near_zero).to(R.dtype)
+
+
+def triu(P):
+    """The upper-triangle entries (i, j), i <= j, of a P x P block, row by
+    row: the order of a camera's rows in red."""
+    return [(i, j) for i in range(P) for j in range(i, P)]
+
+
+def _sym_idx(P):
+    idx = np.zeros((P, P), np.int64)
+    for n, (i, j) in enumerate(triu(P)):
+        idx[i, j] = idx[j, i] = n
+    return idx
+
+
+TRIU6 = triu(6)  # 21 entries
+TRIU3 = triu(3)  # 6 entries
+SYM6_IDX = _sym_idx(6)
+SYM3_IDX = _sym_idx(3)
 
 
 @functools.lru_cache(maxsize=None)
-def sym6_index(device):
-    """SYM6_IDX as a tensor on `device`, copied there once: a copy from the
-    host inside the LM loop would wait for the host (and cannot be captured
-    in a CUDA graph)."""
-    return torch.from_numpy(SYM6_IDX).to(device)
+def sym_index(device, P=6):
+    """The index of entry (i, j) of a P x P block in its upper triangle, as a
+    tensor on `device`, copied there once: a copy from the host inside the
+    LM loop would wait for the host (and cannot be captured in a CUDA
+    graph)."""
+    return torch.from_numpy(_sym_idx(P)).to(device)
 
 
-def _eval_cm(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt, robust):
+def _eval_cm(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt, robust,
+             intr=None):
     """Projection, whitened residuals, Huber weights, cheirality penalty and
     analytic Jacobians for every observation slot (the math of the
     reference's `_eval_tile_body`). Returns (rho [O,L], r [2][O,L],
-    Jc [2][6][O,L], Jp [2][3][O,L]) as nested lists of planes."""
+    Jc [2][P][O,L], Jp [2][3][O,L]) as nested lists of planes.
+
+    `intr` [K, 3] (f, k1, k2 a camera, in the solve's axes, `bal_axes`)
+    selects the "bal" model: the projection f (1 + k1 n + k2 n^2) p of
+    p = P_xy / P_z, n = |p|^2, and P = 9 (the last three columns of Jc are
+    the derivatives in f, k1 and k2); else the pinhole K4 and P = 6."""
     cam = cam_t.long()
     g = torch.cat([R.reshape(-1, 9), t], 1)[cam]  # [O, L, 12]
     g = [g[..., c] for c in range(12)]
@@ -249,10 +347,21 @@ def _eval_cm(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt, robust):
     z = RX[2] + g[11]
     zs = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
     inv_z = 1.0 / zs
-    fx, fy, cx, cy = K4[0], K4[1], K4[2], K4[3]
     isig = inv_sigma_t
-    r0 = (fx * x0 * inv_z + cx - uv_t[0]) * isig
-    r1 = (fy * x1 * inv_z + cy - uv_t[1]) * isig
+    if intr is None:
+        fx, fy, cx, cy = K4[0], K4[1], K4[2], K4[3]
+        r0 = (fx * x0 * inv_z + cx - uv_t[0]) * isig
+        r1 = (fy * x1 * inv_z + cy - uv_t[1]) * isig
+    else:
+        kc = intr[cam]  # [O, L, 3]
+        f, k1, k2 = kc[..., 0], kc[..., 1], kc[..., 2]
+        px = x0 * inv_z
+        py = x1 * inv_z
+        n2 = px * px + py * py
+        rd = 1.0 + n2 * (k1 + k2 * n2)
+        fr = f * rd
+        r0 = (fr * px - uv_t[0]) * isig
+        r1 = (fr * py - uv_t[1]) * isig
     r2 = r0 * r0 + r1 * r1
     if robust:
         nrm2 = torch.sqrt(torch.clamp(r2, min=1e-20))
@@ -264,16 +373,29 @@ def _eval_cm(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt, robust):
     mval = valid_t.to(rho.dtype)
     rho = rho * mval
 
-    a = fx * inv_z * isig
-    b = fy * inv_z * isig
-    zero = torch.zeros_like(a)
-    duv = [[a, zero, -a * x0 * inv_z], [zero, b, -b * x1 * inv_z]]
+    zero = torch.zeros_like(inv_z)
+    if intr is None:
+        a = fx * inv_z * isig
+        b = fy * inv_z * isig
+        duv = [[a, zero, -a * x0 * inv_z], [zero, b, -b * x1 * inv_z]]
+    else:
+        # d(f rd p)/dp = f (rd I + c p p^T), c = 2 (k1 + 2 k2 n), times dp/dP
+        c = 2.0 * (k1 + 2.0 * k2 * n2)
+        fi = f * isig
+        a00 = fi * (rd + c * px * px)
+        a01 = fi * (c * px * py)
+        a11 = fi * (rd + c * py * py)
+        duv = [[a00 * inv_z, a01 * inv_z, -(a00 * px + a01 * py) * inv_z],
+               [a01 * inv_z, a11 * inv_z, -(a01 * px + a11 * py) * inv_z]]
     ns = [[zero, RX[2], -RX[1]], [-RX[2], zero, RX[0]], [RX[1], -RX[0], zero]]
     J_phi = [[sum(duv[al][m] * ns[m][j] for m in range(3)) for j in range(3)]
              for al in range(2)]
     Jp = [[sum(duv[al][m] * g[3 * m + j] for m in range(3)) for j in range(3)]
           for al in range(2)]
     Jc = [J_phi[0] + duv[0], J_phi[1] + duv[1]]
+    if intr is not None:
+        ji = [rd * isig, f * n2 * isig, f * n2 * n2 * isig]  # d/df, d/dk1, d/dk2 of f rd
+        Jc = [Jc[0] + [j * px for j in ji], Jc[1] + [j * py for j in ji]]
 
     mask = mval * (z > 1e-6).to(rho.dtype)
     w = mask
@@ -284,24 +406,28 @@ def _eval_cm(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt, robust):
     sw = torch.sqrt(w)
     r = [r0 * sw * mask, r1 * sw * mask]
     sw_free = sw * (~fixed_t).to(sw.dtype)
-    Jc = [[Jc[al][i] * sw_free for i in range(6)] for al in range(2)]
+    Jc = [[Jc[al][i] * sw_free for i in range(len(Jc[al]))] for al in range(2)]
     Jp = [[Jp[al][j] * sw for j in range(3)] for al in range(2)]
     return rho, r, Jc, Jp
 
 
 def camera_rows(r, Jc):
-    """Each slot's 27 camera rows [27, O, L]: the 21 upper-triangle entries
-    of Jc^T Jc and the 6 of Jc^T r."""
-    rows = [Jc[0][i] * Jc[0][j] + Jc[1][i] * Jc[1][j] for i, j in TRIU6]
-    rows += [Jc[0][i] * r[0] + Jc[1][i] * r[1] for i in range(6)]
+    """Each slot's camera rows [P(P+1)/2 + P, O, L] (27 at P = 6, 54 at
+    P = 9): the upper-triangle entries of Jc^T Jc and the P of Jc^T r."""
+    P = len(Jc[0])
+    rows = [Jc[0][i] * Jc[0][j] + Jc[1][i] * Jc[1][j] for i, j in triu(P)]
+    rows += [Jc[0][i] * r[0] + Jc[1][i] * r[1] for i in range(P)]
     return torch.stack(rows)
 
 
 def _assemble_cm(cam_t, n_cams, r, Jc, Jp):
-    """Undamped block reductions: red [K,27] (21 upper U rows + 6 g_c rows,
-    summed per camera), Vu [6,L], g_p [3,L], W [6,3,O,L]."""
-    stacked = camera_rows(r, Jc).reshape(27, -1)
-    red = torch.zeros((n_cams, 27), dtype=stacked.dtype,
+    """Undamped block reductions: red [K, P (P + 1) / 2 + P] (the upper U
+    rows and the P g_c rows, summed per camera), Vu [6,L], g_p [3,L],
+    W [P,3,O,L]."""
+    P = len(Jc[0])
+    rows = camera_rows(r, Jc)
+    stacked = rows.reshape(rows.shape[0], -1)
+    red = torch.zeros((n_cams, rows.shape[0]), dtype=stacked.dtype,
                       device=stacked.device).index_add_(
         0, cam_t.reshape(-1).long(), stacked.T)
     Vu = torch.stack([torch.sum(Jp[0][i] * Jp[0][j] + Jp[1][i] * Jp[1][j], 0)
@@ -309,7 +435,7 @@ def _assemble_cm(cam_t, n_cams, r, Jc, Jp):
     g_p = torch.stack([torch.sum(Jp[0][i] * r[0] + Jp[1][i] * r[1], 0)
                        for i in range(3)])
     W = torch.stack([torch.stack([Jc[0][i] * Jp[0][j] + Jc[1][i] * Jp[1][j]
-                                  for j in range(3)]) for i in range(6)])
+                                  for j in range(3)]) for i in range(P)])
     return red, Vu, g_p, W
 
 
@@ -369,8 +495,8 @@ def _pcg_system(lam, red, Vu, g_p, W18, cm, reduce):
     (`solve_cameras`, `bundleadjustment_tpu/solvers/dense_ba.py:465-529`),
     which `schur.pcg` solves. Each product over a landmark's slots is one
     einsum (the reference's unrolled sums, in another summation order).
-    Returns (matvec, b [K, 6], U [K, 6, 6] for the preconditioner, vinv6
-    [6, L] for the back-substitution)."""
+    Returns (matvec, b [K, P], U [K, P, P] for the preconditioner, vinv6
+    [6, L] for the back-substitution); W18 is W [3P, O, L]."""
     from bundleadjustment_tpu_torch.solvers.dense_kernels import (
         damped_u,
         point_inverse_plain,
@@ -378,18 +504,19 @@ def _pcg_system(lam, red, Vu, g_p, W18, cm, reduce):
 
     K = cm.cam_fixed.shape[0]
     O, L = cm.cam_t.shape
+    P = W18.shape[0] // 3
     cam = cm.cam_t.long()
     cam_flat = cam.reshape(-1)
-    W = W18.reshape(6, 3, O, L)
+    W = W18.reshape(P, 3, O, L)
     U, g_c = damped_u(lam, red, cm.cam_fixed)
     vinv6, zv = point_inverse_plain(lam, Vu, g_p, cm.pt_valid)
     V_inv = vinv6[torch.from_numpy(SYM3_IDX).to(vinv6.device)]  # [3, 3, L]
 
     def to_cams(z_pt):
-        """sum_o W_o z_pt per camera, [K, 6] (the reference's
+        """sum_o W_o z_pt per camera, [K, P] (the reference's
         `_reduce_cams(_w_apply(W, z))`), all-reduced."""
-        wz = torch.einsum("ijol,jl->iol", W, z_pt).reshape(6, -1)
-        return reduce(torch.zeros((K, 6), dtype=wz.dtype, device=wz.device)
+        wz = torch.einsum("ijol,jl->iol", W, z_pt).reshape(P, -1)
+        return reduce(torch.zeros((K, P), dtype=wz.dtype, device=wz.device)
                       .index_add_(0, cam_flat, wz.T))
 
     def matvec(x):
@@ -401,11 +528,13 @@ def _pcg_system(lam, red, Vu, g_p, W18, cm, reduce):
     return matvec, b, U, vinv6
 
 
-# The LM loop's state, and an iteration's trial point (cameras as R [K,3,3]
-# and t [K,3], landmarks as Xt [3,L], the cost and the reductions of kernel
-# B at them; lam, nu and done 0-d).
-LMState = namedtuple("LMState", "R t Xt cost red Vu g_p W lam nu done")
-Trial = namedtuple("Trial", "R t Xt cost red Vu g_p W")
+# The LM loop's state, and an iteration's trial point (cameras as R [K,3,3],
+# t [K,3] and kk, the intrinsics that the solve moves: [K,3] = (f, k1, k2)
+# for "bal", [K,0] for "pinhole", all in the solve's axes; landmarks as
+# Xt [3,L]; the cost and the reductions of kernel B at them; lam, nu and
+# done 0-d).
+LMState = namedtuple("LMState", "R t kk Xt cost red Vu g_p W lam nu done")
+Trial = namedtuple("Trial", "R t kk Xt cost red Vu g_p W")
 
 
 def _same(x):
@@ -417,17 +546,26 @@ def _eval_args(cm):
     return (cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t, cm.fixed_t)
 
 
-def _lm_start(dk, cm, cam_rt6, points, config, reduce):
-    """The loop's start: the state at (cam_rt6, points) by kernel B without
-    the back-substitution, lam0, nu = 2, not done."""
-    R = aa_to_rotmat(cam_rt6[:, :3]).contiguous()
-    t = cam_rt6[:, 3:].contiguous()
+def _intr(kk):
+    """The keyword of kernel B's calls that selects the "bal" model."""
+    return {"intr": kk} if kk.shape[1] else {}
+
+
+def _lm_start(dk, cm, cams, points, config, reduce):
+    """The loop's start: the state at (cams [K, P], points) by kernel B
+    without the back-substitution, lam0, nu = 2, not done. "bal" cameras
+    enter the solve's axes here (`bal_axes`)."""
+    R = aa_to_rotmat(cams[:, :3]).contiguous()
+    t = cams[:, 3:6].contiguous()
+    kk = cams[:, 6:9].contiguous()
+    if cm.width == 9:
+        R, t = (x.contiguous() for x in bal_axes(R, t))
     Xt = points.T.contiguous()
     cost, red, Vu, g_p, W = dk.eval_assemble(*_eval_args(cm), R, t, Xt,
-                                             robust=config.robust)
+                                             robust=config.robust, **_intr(kk))
     cost, red = reduce(cost), reduce(red)
     dev, dt_ = cost.device, cost.dtype
-    return LMState(R, t, Xt, cost, red, Vu, g_p, W,
+    return LMState(R, t, kk, Xt, cost, red, Vu, g_p, W,
                    torch.tensor(config.lam0, dtype=dt_, device=dev),
                    torch.tensor(2.0, dtype=dt_, device=dev),
                    torch.zeros((), dtype=torch.bool, device=dev))
@@ -438,20 +576,23 @@ def _schur_system(dk, cm, route, single, st, reduce):
     by kernel C (one device, route (s)) or `_system_unfolded`."""
     K = cm.cam_fixed.shape[0]
     O, L = cm.cam_t.shape
-    W18 = st.W.reshape(18, O, L)
+    W18 = st.W.reshape(3 * cm.width, O, L)
     if single and route == "s":
+        # at width 9 kernel C reads which slots hold an observation, where it
+        # would test W at every padding slot (the 6-wide call keeps its test)
+        valid = {"valid_t": cm.valid_t} if cm.width == 9 else {}
         S, _zv, vinv6, b = dk.schur_prepare_s(st.lam, st.Vu, st.g_p, cm.pt_valid, W18,
-                                              cm.cam_t, K, st.red, cm.cam_fixed)
+                                              cm.cam_t, K, st.red, cm.cam_fixed, **valid)
         return S, b, vinv6
     return _system_unfolded(dk, route, st.lam, st.Vu, st.g_p, W18, cm, st.red, reduce)
 
 
 def _camera_step(dk, S, b, fixed, zero, out=None):
-    """Step 2, exact: the camera step dc [K, 6] = S^-1 b by `dk.chol_solve`,
+    """Step 2, exact: the camera step dc [K, P] = S^-1 b by `dk.chol_solve`,
     zero for the fixed cameras (`fixed` [K, 1]); written into `out` where
     given."""
-    # S and b are in (i, k) order: the solution comes back as [6, K]
-    x = dk.chol_solve(S, b).reshape(6, -1).T
+    # S and b are in (i, k) order: the solution comes back as [P, K]
+    x = dk.chol_solve(S, b).reshape(-1, fixed.shape[0]).T
     if out is None:
         return torch.where(fixed, zero, x).contiguous()
     return torch.where(fixed, zero, x, out=out)
@@ -463,20 +604,22 @@ def _trial(dk, cm, config, st, dc, vinv6, reduce, pcg_mode=False):
     from bundleadjustment_tpu_torch.solvers.dense_kernels import _backsub_plain
 
     O, L = cm.cam_t.shape
-    W18 = st.W.reshape(18, O, L)
+    W18 = st.W.reshape(3 * cm.width, O, L)
     args = _eval_args(cm)
     R_new = (aa_to_rotmat(dc[:, :3]) @ st.R).contiguous()
-    t_new = (st.t + dc[:, 3:]).contiguous()
+    t_new = (st.t + dc[:, 3:6]).contiguous()
+    kk_new = (st.kk + dc[:, 6:9]).contiguous() if st.kk.shape[1] else st.kk
+    intr = _intr(kk_new)
     if pcg_mode:
         Xt_n = _backsub_plain(cm.cam_t, dc, st.Xt, W18, vinv6, st.g_p,
                               cm.pt_valid).contiguous()
         cost, red, Vu, g_p, W = dk.eval_assemble(*args, R_new, t_new, Xt_n,
-                                                 robust=config.robust)
+                                                 robust=config.robust, **intr)
     else:
         cost, red, Vu, g_p, W, Xt_n = dk.eval_assemble_bs(
             *args, R_new, t_new, dc, st.Xt, W18, vinv6, st.g_p, cm.pt_valid,
-            robust=config.robust)
-    return Trial(R_new, t_new, Xt_n, reduce(cost), reduce(red), Vu, g_p, W)
+            robust=config.robust, **intr)
+    return Trial(R_new, t_new, kk_new, Xt_n, reduce(cost), reduce(red), Vu, g_p, W)
 
 
 def _lm_update(st, tr, rtol, out=None):
@@ -491,6 +634,7 @@ def _lm_update(st, tr, rtol, out=None):
     rel = (st.cost - tr.cost) / torch.clamp(st.cost, min=1e-20)
     R = torch.where(take, tr.R, st.R, out=o.R)
     t = torch.where(take, tr.t, st.t, out=o.t)
+    kk = torch.where(take, tr.kk, st.kk, out=o.kk) if st.kk.shape[1] else st.kk
     Xt = torch.where(take, tr.Xt, st.Xt, out=o.Xt)
     lam = torch.where(st.done, st.lam,
                       torch.where(accept, st.lam / 3.0, st.lam * st.nu), out=o.lam)
@@ -503,7 +647,7 @@ def _lm_update(st, tr, rtol, out=None):
     Vu = torch.where(take, tr.Vu, st.Vu, out=o.Vu)
     g_p = torch.where(take, tr.g_p, st.g_p, out=o.g_p)
     W = torch.where(take, tr.W, st.W, out=o.W)
-    return LMState(R, t, Xt, cost, red, Vu, g_p, W, lam, nu, done)
+    return LMState(R, t, kk, Xt, cost, red, Vu, g_p, W, lam, nu, done)
 
 
 def _solve_eager(dk, cm, route, single, st, config, reduce, span):
@@ -518,7 +662,8 @@ def _solve_eager(dk, cm, route, single, st, config, reduce, span):
         with span("ba.schur"):
             if pcg_mode:
                 matvec, b, U, vinv6 = _pcg_system(st.lam, st.red, st.Vu, st.g_p,
-                                                  st.W.reshape(18, O, L), cm, reduce)
+                                                  st.W.reshape(3 * cm.width, O, L),
+                                                  cm, reduce)
             else:
                 S, b, vinv6 = _schur_system(dk, cm, route, single, st, reduce)
         with span("ba.camera_solve"):
@@ -557,7 +702,7 @@ class _LoopGraphs:
 
         self.dk, self.cm = dk, cm
         self.st = LMState(*(x.clone() for x in st0))
-        self.dc = torch.zeros((cm.cam_fixed.shape[0], 6), dtype=st0.cost.dtype,
+        self.dc = torch.zeros((cm.cam_fixed.shape[0], cm.width), dtype=st0.cost.dtype,
                               device=st0.cost.device)
         self.zero = torch.zeros((), dtype=st0.cost.dtype, device=st0.cost.device)
         self.fixed = cm.cam_fixed[:, None]
@@ -611,12 +756,13 @@ def graph_key(prob, cam_rt6, points, config, ops):
     """The key of a call (module docstring): what its captured iteration
     reads by address or bakes in. Each of the problem's tensors by identity,
     data pointer, `_version` (bumped by every in-place edit), shape and
-    dtype; the start's dtypes; the route; the settings that the graphs take
-    as constants (robust cost, rtol, TF32 in the library's Q Q^T); `ops`."""
+    dtype; the camera model; the start's dtypes; the route; the settings
+    that the graphs take as constants (robust cost, rtol, TF32 in the
+    library's Q Q^T); `ops`."""
     tensors = _problem_tensors(prob)
     return (tuple((id(x), x.data_ptr(), x._version, tuple(x.shape), x.dtype)
                   for x in tensors),
-            prob.uv.device, cam_rt6.dtype, points.dtype,
+            prob.camera_model, prob.uv.device, cam_rt6.dtype, points.dtype,
             schur_route(prob.cam_idx.shape[1]), bool(config.robust),
             float(config.rtol), torch.backends.cuda.matmul.allow_tf32, ops)
 
@@ -678,12 +824,60 @@ class GraphCache:
 GRAPHS = GraphCache()
 
 
+class _SlotCounts:
+    """Valid observations of the last few problems' `valid` tensors, by
+    identity, data pointer, `_version` and shape: a problem's first solve
+    counts them (one wait for the device), its later solves read the count."""
+
+    SIZE = 8
+
+    def __init__(self):
+        self._kept = OrderedDict()
+
+    def __call__(self, valid):
+        key = (id(valid), valid.data_ptr(), valid._version, tuple(valid.shape))
+        hit = self._kept.get(key)
+        if hit is not None and hit[0]() is valid:
+            self._kept.move_to_end(key)
+            return hit[1]
+        n = int(valid.sum())
+        self._kept[key] = (weakref.ref(valid), n)
+        while len(self._kept) > self.SIZE:
+            self._kept.popitem(last=False)
+        return n
+
+
+_VALID_OBS = _SlotCounts()
+
+
+def check_route(prob, reduce, config):
+    """Raises ValueError, before any work, for a route that does not take
+    the problem's camera model. The "bal" model (P = 9) runs the one-device
+    exact route (s) (kernels B and C), PCG (kernel B and plain PyTorch) and
+    any camera-system solve (the library call or kernel E, which take any N);
+    not the sharded engine (its shards are built for the pinhole model) nor
+    route (c) (kernel D's G and red6 are 6 wide)."""
+    if prob.camera_model == "pinhole":
+        return
+    if reduce is not None:
+        raise ValueError(f"the sharded engine does not take camera model "
+                         f"{prob.camera_model!r}: it solves pinhole problems")
+    if config.solver == "dense" and schur_route(prob.cam_idx.shape[1]) != "s":
+        raise ValueError(f"Schur route (c) (kernel D, O = {prob.cam_idx.shape[1]} > "
+                         f"{S_KERNEL_MAX_O}) does not take camera model "
+                         f"{prob.camera_model!r}: its tracks must be at most "
+                         f"{S_KERNEL_MAX_O} long")
+
+
 def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
                    ops=None, reduce=None):
     """LM / exact-Schur solve in the dense landmark-major layout.
 
-    cam_rt6 [K, 6], points [L, 3] on the problem's device. Returns
-    (cam_rt6', points', info) with info's values as device tensors. `ops`
+    cam_rt6 [K, P], points [L, 3] on the problem's device, P the camera
+    width of the problem's model (CAMERA_WIDTH): rt6 for "pinhole", BAL's
+    (w, t, f, k1, k2) in BAL's axes for "bal", which the solve takes into
+    its own axes and back (`bal_axes`). Returns (cameras [K, P], points',
+    info) with info's values as device tensors. `ops`
     (default `dense_kernels.KERNEL_OPS`, which dispatch on the device) picks
     the implementations of the kernels and of the camera-system solve.
 
@@ -698,7 +892,11 @@ def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
     reduce per matvec) and kernel B without back-substitution.
 
     A repeated call on one device replays the iteration as CUDA graphs
-    (module docstring); the outputs are the eager path's.
+    (module docstring); the outputs are the eager path's. A route that does
+    not take the camera model raises ValueError first (`check_route`).
+
+    The solve's record in TIMER holds three counters: "camera_width" (P),
+    "valid_obs" (the valid observations) and "dense_slots" (L x O).
     """
     span = TIMER.phase
     with span("ba.solve"):
@@ -706,7 +904,12 @@ def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
 
         dk = dense_kernels.KERNEL_OPS if ops is None else ops
         check_solver(config)
+        check_route(prob, reduce, config)
         device = prob.uv.device
+        L, O = prob.cam_idx.shape
+        TIMER.counter("camera_width", camera_width(prob.camera_model))
+        TIMER.counter("valid_obs", _VALID_OBS(prob.valid))
+        TIMER.counter("dense_slots", L * O)
         entry, seen = None, False
         if graph_engages(device, reduce, config.solver, True):
             entry, seen = GRAPHS.visit(graph_key(prob, cam_rt6, points, config, dk),
@@ -728,6 +931,10 @@ def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig(),
             st0 = _lm_start(dk, cm, cam_rt6, points, config, reduce)
             st, hist = _solve_eager(dk, cm, schur_route(cm.cam_t.shape[0]), single, st0,
                                     config, reduce, span)
-        cams_out = torch.cat([rotmat_to_aa(st.R), st.t], -1)
+        if st.kk.shape[1] == 0:
+            cams_out = torch.cat([rotmat_to_aa(st.R), st.t], -1)
+        else:
+            R, t = bal_axes(st.R, st.t)
+            cams_out = torch.cat([log_rotation(R), t, st.kk], -1)
         info = {"cost0": st0.cost, "cost": st.cost, "cost_history": hist}
         return cams_out, st.Xt.T, info

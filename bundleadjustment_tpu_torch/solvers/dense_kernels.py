@@ -46,7 +46,14 @@ from bundleadjustment_tpu_torch import kernels
 from bundleadjustment_tpu_torch.solvers.chol import chol_solve, chol_solve_plain
 from bundleadjustment_tpu_torch.solvers.schur import cholesky_solve_nan
 
-N_RED = 27  # 21 upper-triangle U rows + 6 gradient rows per camera
+def n_red(P):
+    """Rows of red a camera at camera width P: 27 at 6, 54 at 9."""
+    return P * (P + 1) // 2 + P
+
+
+def width_of_red(n):
+    """The camera width P whose red has n = P (P + 1) / 2 + P rows."""
+    return int(round((-3 + (9 + 8 * n) ** 0.5) / 2))
 
 
 # ---------------------------------------------------------------------------
@@ -55,9 +62,10 @@ N_RED = 27  # 21 upper-triangle U rows + 6 gradient rows per camera
 
 
 def _backsub_plain(cam_t, dc, Xt, W18_prev, vinv6, gp_prev, pt_valid):
-    """Xt_new = Xt - V^-1 (g_p + sum_o W_o^T dc[cam_o]) for valid points."""
-    dcg = dc[cam_t.long()]  # [O, L, 6]
-    y = [torch.sum(sum(W18_prev[i * 3 + j] * dcg[..., i] for i in range(6)), 0)
+    """Xt_new = Xt - V^-1 (g_p + sum_o W_o^T dc[cam_o]) for valid points;
+    dc [K, P], W18_prev [3P, O, L]."""
+    dcg = dc[cam_t.long()]  # [O, L, P]
+    y = [torch.sum(sum(W18_prev[i * 3 + j] * dcg[..., i] for i in range(dc.shape[1])), 0)
          for j in range(3)]
     a = [gp_prev[j] + y[j] for j in range(3)]
     v = vinv6
@@ -84,14 +92,15 @@ DensePlan = namedtuple("DensePlan", "lanes warps blocks rounds tile n_tiles unit
                        "smem_bytes scratch_bytes")
 
 
-def dense_eval_smem_bytes(warps, tile):
-    """Dynamic shared memory of a dense_eval_units block: a [tile][27] table
-    and a cost a warp."""
-    return 4 * (warps * tile * N_RED + warps)
+def dense_eval_smem_bytes(warps, tile, width=6):
+    """Dynamic shared memory of a dense_eval_units block: a [tile][n_red]
+    table and a cost a warp."""
+    return 4 * (warps * tile * n_red(width) + warps)
 
 
-def dense_eval_plan(K, L, O, n_sm):
-    """Kernel B's launch plan, from the shapes and the SM count alone.
+def dense_eval_plan(K, L, O, n_sm, width=6):
+    """Kernel B's launch plan, from the shapes, the camera width and the SM
+    count alone.
 
     - lanes S: lanes a landmark, a power of two, at most 32 and at most O
       rounded up to one; the smallest that gives ceil(L S / 32) warp units
@@ -104,7 +113,7 @@ def dense_eval_plan(K, L, O, n_sm):
       DENSE_SM_WARPS warps an SM (and what shared memory allows), at least
       one block a tile; each warp takes `rounds` units at most, and blocks
       = ceil(units / (warps rounds)) a tile; 0 when L = 0;
-    - scratch_bytes: the slabs, 27 T + 1 floats a block and tile."""
+    - scratch_bytes: the slabs, n_red T + 1 floats a block and tile."""
     S_max = min(32, 1 << max(0, O - 1).bit_length())
     S = 1
     while S < S_max and -(-L * S // 32) < DENSE_FILL_WARPS * n_sm:
@@ -115,7 +124,7 @@ def dense_eval_plan(K, L, O, n_sm):
     warps = DENSE_WARPS
     while warps > 1 and units < warps * n_sm:
         warps //= 2
-    smem = dense_eval_smem_bytes(warps, T)
+    smem = dense_eval_smem_bytes(warps, T, width)
     per_sm = max(1, min(DENSE_SM_WARPS // warps, SMEM_SM_BYTES // (smem + 1024)))
     per_tile = max(1, n_sm * per_sm // n_tiles)  # the tiles share the grid
     if L == 0:
@@ -124,7 +133,7 @@ def dense_eval_plan(K, L, O, n_sm):
         rounds = -(-units // (warps * per_tile))
         blocks = -(-units // (warps * rounds))
     return DensePlan(S, warps, blocks, rounds, T, n_tiles, units, smem,
-                     4 * n_tiles * blocks * (N_RED * T + 1))
+                     4 * n_tiles * blocks * (n_red(width) * T + 1))
 
 
 def _blocked_sum(slabs):
@@ -144,7 +153,7 @@ def _blocked_sum(slabs):
 
 
 def _red_cost_blocked(cam_t, n_cams, rho, r, Jc, plan):
-    """red [K,27] and the cost summed in kernel B's blocking: per block of
+    """red [K, n_red] and the cost summed in kernel B's blocking: per block of
     the plan (landmark l in unit l // (32 / S), unit u on warp u % (blocks
     warps), warp w in block w // warps), then over the blocks as the
     finishing pass sums them."""
@@ -155,28 +164,31 @@ def _red_cost_blocked(cam_t, n_cams, rho, r, Jc, plan):
     unit = torch.arange(L, device=cam_t.device) // (32 // plan.lanes)
     block = (unit % max(1, plan.blocks * plan.warps)) // plan.warps
     reds, costs = [], []
+    nr = rows.shape[0]
     for b in range(plan.blocks):
         sel = torch.nonzero(block == b).flatten()
-        reds.append(torch.zeros((n_cams, N_RED), dtype=rows.dtype,
+        reds.append(torch.zeros((n_cams, nr), dtype=rows.dtype,
                                 device=rows.device).index_add_(
-            0, cam_t[:, sel].reshape(-1).long(), rows[:, :, sel].reshape(N_RED, -1).T))
+            0, cam_t[:, sel].reshape(-1).long(), rows[:, :, sel].reshape(nr, -1).T))
         costs.append(torch.sum(rho[:, sel]))
     if not reds:
-        return (torch.zeros((n_cams, N_RED), dtype=rho.dtype, device=rho.device),
+        return (torch.zeros((n_cams, nr), dtype=rho.dtype, device=rho.device),
                 torch.zeros((), dtype=rho.dtype, device=rho.device))
     return _blocked_sum(reds), _blocked_sum(costs)
 
 
 def eval_assemble_plain(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t,
-                        Xt, robust=True, plan=None):
+                        Xt, robust=True, plan=None, intr=None):
     """Plain version of kernel B without back-substitution.
-    Returns (cost, red [K,27], Vu [6,L], g_p [3,L], W [6,3,O,L]). With a
-    `plan` (dense_eval_plan) red and the cost are summed in the kernel's
-    blocking: block by block, then the blocks in its finishing order."""
+    Returns (cost, red [K, n_red], Vu [6,L], g_p [3,L], W [P,3,O,L]): P = 6
+    for the pinhole K4, P = 9 with `intr` [K, 3] (f, k1, k2 a camera: the
+    "bal" model, `dense_ba._eval_cm`). With a `plan` (dense_eval_plan) red
+    and the cost are summed in the kernel's blocking: block by block, then
+    the blocks in its finishing order."""
     from bundleadjustment_tpu_torch.solvers.dense_ba import _assemble_cm, _eval_cm
 
     rho, r, Jc, Jp = _eval_cm(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t,
-                              R, t, Xt, robust)
+                              R, t, Xt, robust, intr)
     red, Vu, g_p, W = _assemble_cm(cam_t, R.shape[0], r, Jc, Jp)
     if plan is None:
         return torch.sum(rho), red, Vu, g_p, W
@@ -186,23 +198,27 @@ def eval_assemble_plain(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t,
 
 def eval_assemble_bs_plain(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R,
                            t, dc, Xt, W18_prev, vinv6, gp_prev, pt_valid,
-                           robust=True, plan=None):
+                           robust=True, plan=None, intr=None):
     """Plain version of kernel B with back-substitution: evaluates at the
-    trial landmarks. Returns (cost, red, Vu, g_p, W, Xt_new [3,L]); `plan`
-    as eval_assemble_plain."""
+    trial landmarks. Returns (cost, red, Vu, g_p, W, Xt_new [3,L]); dc
+    [K, P], W18_prev [3P, O, L]; `plan`, `intr` as eval_assemble_plain."""
     Xt_new = _backsub_plain(cam_t, dc, Xt, W18_prev, vinv6, gp_prev, pt_valid)
     out = eval_assemble_plain(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t,
-                              R, t, Xt_new, robust, plan)
+                              R, t, Xt_new, robust, plan, intr)
     return (*out, Xt_new)
 
 
 def _launch_eval(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt,
-                 robust, bs):
+                 robust, bs, intr=None):
     O, L = cam_t.shape
     K = R.shape[0]
+    P = 6 if intr is None else 9
+    NR = n_red(P)
     dev = cam_t.device
     f32 = torch.float32
     kernels.check_cuda("K4", K4, f32, (4,))
+    if intr is not None:
+        kernels.check_cuda("intr", intr, f32, (K, 3))
     kernels.check_cuda("R", R, f32, (K, 3, 3))
     kernels.check_cuda("t", t, f32, (K, 3))
     kernels.check_cuda("cam_t", cam_t, torch.int32, (O, L))
@@ -213,8 +229,8 @@ def _launch_eval(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt,
     kernels.check_cuda("Xt", Xt, f32, (3, L))
     if bs is not None:
         dc, W18_prev, vinv6, gp_prev, pt_valid = bs
-        kernels.check_cuda("dc", dc, f32, (K, 6))
-        kernels.check_cuda("W18_prev", W18_prev, f32, (18, O, L))
+        kernels.check_cuda("dc", dc, f32, (K, P))
+        kernels.check_cuda("W18_prev", W18_prev, f32, (3 * P, O, L))
         kernels.check_cuda("vinv6", vinv6, f32, (6, L))
         kernels.check_cuda("gp_prev", gp_prev, f32, (3, L))
         kernels.check_cuda("pt_valid", pt_valid, torch.bool, (L,))
@@ -222,20 +238,21 @@ def _launch_eval(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt,
     else:
         bs_ptrs = [None] * 5
     plan = dense_eval_plan(K, L, O, torch.cuda.get_device_properties(dev)
-                           .multi_processor_count)
+                           .multi_processor_count, P)
     slab = torch.empty((max(1, plan.scratch_bytes // 4),), dtype=f32, device=dev)
-    red = torch.empty((K, N_RED), dtype=f32, device=dev)
+    red = torch.empty((K, NR), dtype=f32, device=dev)
     cost = torch.empty((), dtype=f32, device=dev)
     Vu = torch.empty((6, L), dtype=f32, device=dev)
     g_p = torch.empty((3, L), dtype=f32, device=dev)
-    W = torch.empty((18, O, L), dtype=f32, device=dev)
+    W = torch.empty((3 * P, O, L), dtype=f32, device=dev)
     Xt_new = torch.empty((3, L), dtype=f32, device=dev) if bs is not None else None
     dc_ptr, w_ptr, v_ptr, gp_ptr, ptv_ptr = bs_ptrs
     code = kernels.lib("dense_eval").dense_eval_assemble(
-        K4.data_ptr(), R.data_ptr(), t.data_ptr(), dc_ptr, cam_t.data_ptr(),
+        K4.data_ptr(), None if intr is None else intr.data_ptr(), R.data_ptr(),
+        t.data_ptr(), dc_ptr, cam_t.data_ptr(),
         uv_t.data_ptr(), inv_sigma_t.data_ptr(), valid_t.data_ptr(),
         fixed_t.data_ptr(), Xt.data_ptr(), w_ptr, v_ptr, gp_ptr, ptv_ptr,
-        O, L, K, int(bool(robust)), int(bs is not None),
+        O, L, K, P, int(bool(robust)), int(bs is not None),
         plan.lanes.bit_length() - 1, plan.warps, plan.blocks, plan.tile,
         plan.n_tiles, slab.data_ptr(), red.data_ptr(), cost.data_ptr(),
         Vu.data_ptr(), g_p.data_ptr(), W.data_ptr(),
@@ -243,31 +260,32 @@ def _launch_eval(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt,
     kernels.check(code, "dense_eval_assemble")
     name = "dense_eval_assemble" if bs is None else "dense_eval_assemble_bs"
     kernels.LAUNCHES[name] += 1
-    out = (cost, red, Vu, g_p, W.reshape(6, 3, O, L))
+    out = (cost, red, Vu, g_p, W.reshape(P, 3, O, L))
     return out if bs is None else (*out, Xt_new)
 
 
 def eval_assemble(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, Xt,
-                  robust=True):
-    """Kernel B seed eval: (cost, red [K,27], Vu [6,L], g_p [3,L],
-    W [6,3,O,L]) at (R, t, Xt)."""
+                  robust=True, intr=None):
+    """Kernel B seed eval: (cost, red [K, n_red], Vu [6,L], g_p [3,L],
+    W [P,3,O,L]) at (R, t, Xt); `intr` [K, 3] selects the "bal" model
+    (eval_assemble_plain)."""
     if not cam_t.is_cuda:
         return eval_assemble_plain(K4, cam_t, uv_t, inv_sigma_t, valid_t,
-                                   fixed_t, R, t, Xt, robust)
+                                   fixed_t, R, t, Xt, robust, intr=intr)
     return _launch_eval(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t,
-                        Xt, robust, None)
+                        Xt, robust, None, intr)
 
 
 def eval_assemble_bs(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t, dc,
-                     Xt, W18_prev, vinv6, gp_prev, pt_valid, robust=True):
+                     Xt, W18_prev, vinv6, gp_prev, pt_valid, robust=True, intr=None):
     """Kernel B with fused back-substitution: (cost, red, Vu, g_p, W, Xt_new)
     evaluated at the trial landmarks Xt_new."""
     if not cam_t.is_cuda:
         return eval_assemble_bs_plain(K4, cam_t, uv_t, inv_sigma_t, valid_t,
                                       fixed_t, R, t, dc, Xt, W18_prev, vinv6,
-                                      gp_prev, pt_valid, robust)
+                                      gp_prev, pt_valid, robust, intr=intr)
     return _launch_eval(K4, cam_t, uv_t, inv_sigma_t, valid_t, fixed_t, R, t,
-                        Xt, robust, (dc, W18_prev, vinv6, gp_prev, pt_valid))
+                        Xt, robust, (dc, W18_prev, vinv6, gp_prev, pt_valid), intr)
 
 
 # ---------------------------------------------------------------------------
@@ -322,59 +340,65 @@ def _point_prepare_plain(lam, Vu, g_p, pt_valid):
 
 
 def damped_u(lam, red27, cam_fixed):
-    """The LM-damped camera blocks U [K,6,6] and g_c [K,6] from the
-    undamped rows red27 [K,27] (the reference's `_damp_U_cm`: identity
-    blocks and zero gradients for fixed cameras)."""
-    from bundleadjustment_tpu_torch.solvers.dense_ba import sym6_index
+    """The LM-damped camera blocks U [K,P,P] and g_c [K,P] from the
+    undamped rows red27 [K, n_red(P)] (the reference's `_damp_U_cm`:
+    identity blocks and zero gradients for fixed cameras)."""
+    from bundleadjustment_tpu_torch.solvers.dense_ba import sym_index
 
-    U = red27[:, sym6_index(red27.device)]  # [K, 6, 6]
-    eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
+    P = width_of_red(red27.shape[1])
+    nu = P * (P + 1) // 2
+    U = red27[:, sym_index(red27.device, P)]  # [K, P, P]
+    eye = torch.eye(P, dtype=U.dtype, device=U.device)
     dU = torch.clamp(torch.diagonal(U, dim1=-2, dim2=-1), min=1e-6)
-    U = U + (lam * dU)[..., None] * eye6
-    U = torch.where(cam_fixed[:, None, None], eye6, U)
-    g_c = torch.where(cam_fixed[:, None], torch.zeros_like(red27[:, 21:]),
-                      red27[:, 21:])
+    U = U + (lam * dU)[..., None] * eye
+    U = torch.where(cam_fixed[:, None, None], eye, U)
+    g_c = torch.where(cam_fixed[:, None], torch.zeros_like(red27[:, nu:]),
+                      red27[:, nu:])
     return U, g_c
 
 
 def damped_system(lam, red27, cam_fixed, S_qqt, red6):
     """The damped Schur system (S, b) of one LM iteration from the undamped
-    camera rows red27 [K,27] and the point terms S_qqt = +Q Q^T [6K,6K] and
-    red6 = sum W zv [6,K]: S = the block-diagonal damped U (identity blocks
-    for fixed cameras, the reference's `_damp_U_cm`) + 1e-8 I - S_qqt and
-    b = -(g_c - red6) (g_c zero for fixed cameras), all in (i, k) order (row
-    i*K + k), so the solution comes back as [6, K]."""
+    camera rows red27 [K, n_red(P)] and the point terms S_qqt = +Q Q^T
+    [PK, PK] and red6 = sum W zv [P, K]: S = the block-diagonal damped U
+    (identity blocks for fixed cameras, the reference's `_damp_U_cm`) +
+    1e-8 I - S_qqt and b = -(g_c - red6) (g_c zero for fixed cameras), all
+    in (i, k) order (row i*K + k), so the solution comes back as [P, K]."""
     K = red27.shape[0]
     U, g_c = damped_u(lam, red27, cam_fixed)
-    E = torch.zeros((6, K, 6, K), dtype=U.dtype, device=U.device)
+    P = U.shape[-1]
+    E = torch.zeros((P, K, P, K), dtype=U.dtype, device=U.device)
     ar = torch.arange(K, device=U.device)
     E[:, ar, :, ar] = U
-    S = (E.reshape(6 * K, 6 * K)
-         + 1e-8 * torch.eye(6 * K, dtype=U.dtype, device=U.device) - S_qqt)
+    S = (E.reshape(P * K, P * K)
+         + 1e-8 * torch.eye(P * K, dtype=U.dtype, device=U.device) - S_qqt)
     return S, -(g_c.T - red6).reshape(-1)
 
 
 def _wz_plain(W18, zv):
-    """(W zv) [6, O, L]: each slot's terms of the camera rhs rows."""
+    """(W zv) [P, O, L]: each slot's terms of the camera rhs rows (W18 is
+    W [3P, O, L])."""
     return torch.stack([sum(W18[i * 3 + j] * zv[j][None, :] for j in range(3))
-                        for i in range(6)])
+                        for i in range(W18.shape[0] // 3)])
 
 
 def _red6_plain(wz, cam_t, n_cams):
-    # index_add_ along dim 0, then [6, K]: along dim 1 it is slower on the
+    # index_add_ along dim 0, then [P, K]: along dim 1 it is slower on the
     # card and sums in another order
-    return torch.zeros((n_cams, 6), dtype=wz.dtype, device=wz.device).index_add_(
-        0, cam_t.reshape(-1).long(), wz.reshape(6, -1).T).T.contiguous()
+    P = wz.shape[0]
+    return torch.zeros((n_cams, P), dtype=wz.dtype, device=wz.device).index_add_(
+        0, cam_t.reshape(-1).long(), wz.reshape(P, -1).T).T.contiguous()
 
 
 def schur_prepare_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, plan=None):
-    """Plain version of kernel D. Returns (G [18,O,L] = W chol(V^-1) in rows
-    i*3 + m, zv [3,L], vinv6 [6,L], red6 [6,K] = sum W zv per camera). With
-    a `plan` (schur_prepare_plan) red6 is summed in the kernel's blocking:
-    block by block, then the blocks in its finishing order."""
+    """Plain version of kernel D. Returns (G [3P,O,L] = W chol(V^-1) in rows
+    i*3 + m, zv [3,L], vinv6 [6,L], red6 [P,K] = sum W zv per camera), W18
+    being W [3P, O, L] (kernel D itself takes P = 6 only). With a `plan`
+    (schur_prepare_plan) red6 is summed in the kernel's blocking: block by
+    block, then the blocks in its finishing order."""
     vinv6, C, zv = _point_prepare_plain(lam, Vu, g_p, pt_valid)
     G = torch.stack([sum(W18[i * 3 + j] * C[j][m][None, :] for j in range(3))
-                     for i in range(6) for m in range(3)])  # [18, O, L]
+                     for i in range(W18.shape[0] // 3) for m in range(3)])
     wz = _wz_plain(W18, zv)
     if plan is None:
         return G, zv, vinv6, _red6_plain(wz, cam_t, n_cams)
@@ -462,114 +486,140 @@ def _red6_blocked(wz, cam_t, n_cams, plan):
 
 
 def pf_index_add(G, cam_t, n_cams):
-    """Pf [L*K, 18]: Pf[l*K + k] = sum_o [cam_o == k] G[:, o, l] (one
+    """Pf [L*K, 3P]: Pf[l*K + k] = sum_o [cam_o == k] G[:, o, l] (one
     index_add_; the reference's one-hot Pf contraction)."""
     L = cam_t.shape[1]
+    n = G.shape[0]
     slot = (torch.arange(L, device=cam_t.device)[None, :] * n_cams
             + cam_t.long()).reshape(-1)
-    return torch.zeros((L * n_cams, 18), dtype=G.dtype,
-                       device=G.device).index_add_(0, slot, G.reshape(18, -1).T)
+    return torch.zeros((L * n_cams, n), dtype=G.dtype,
+                       device=G.device).index_add_(0, slot, G.reshape(n, -1).T)
 
 
 def qqt_factor(Pf, n_cams):
-    """Q [6K, 3L] from Pf [L*K, 18] (columns i*3 + m), rows in (i, k) order
+    """Q [PK, 3L] from Pf [L*K, 3P] (columns i*3 + m), rows in (i, k) order
     (row i*K + k)."""
     K = n_cams
     L = Pf.shape[0] // K
-    return Pf.reshape(L, K, 6, 3).permute(2, 1, 0, 3).reshape(6 * K, 3 * L)
+    P = Pf.shape[1] // 3
+    return Pf.reshape(L, K, P, 3).permute(2, 1, 0, 3).reshape(P * K, 3 * L)
 
 
 def qqt(Pf, n_cams):
-    """Q Q^T [6K, 6K] from Pf [L*K, 18]; a plain matrix product."""
+    """Q Q^T [PK, PK] from Pf [L*K, 3P]; a plain matrix product."""
     Q = qqt_factor(Pf, n_cams)
     return Q @ Q.T
 
 
 # Kernel C / K5's blocking (csrc/schur_s.cu): warps a block, landmarks a
 # scan unit (landmark l is in chunk (l // SCHUR_UNIT) % chunks), floats a
-# staged slot, staged slots a batch at least; the shared memory a block may
-# take on an H100, and the bound on the scratch slabs.
+# staged slot at camera width 6 (4 P + 1: G, W zv and a pad), staged slots a
+# batch at least; the shared memory a block may take on an H100, and the
+# bound on the scratch slabs.
 SCHUR_WARPS = 16
 SCHUR_UNIT = 32
 SCHUR_GS = 25
 SCHUR_SLOTS = 384
 SMEM_MAX_BYTES = 232_448  # 227 KB
 SCHUR_SCRATCH_CAP = 64 << 20
+# at width 9: the most chunks a tile pair is cut into, and the bound on the
+# scratch slabs then
+SCHUR_CHUNKS_9 = 8
+SCHUR_SCRATCH_CAP_9 = 256 << 20
 
 SchurPlan = namedtuple("SchurPlan", "tile n_tiles pairs chunks slots smem_bytes "
                        "scratch_bytes")
 
 
-def schur_tile_bytes(T, slots=SCHUR_SLOTS, O=32):
+def schur_tile_bytes(T, slots=SCHUR_SLOTS, O=32, width=6):
     """Dynamic shared memory of one schur_tiles block at tile size T with
-    `slots` staged observation slots and O slots a landmark (csrc/
-    schur_s.cu: tile_smem_bytes)."""
-    n6 = 6 * T
+    `slots` staged observation slots, O slots a landmark and camera width P
+    (csrc/schur_s.cu: tile_smem_bytes): the tile's P T rows hold a camera's
+    P columns at a stride of P rounded up to even (8-byte aligned rows of a
+    camera block, for the 64-bit compare-and-swaps); at width 9 the staged
+    slots are compact (a landmark's members one after the other), which
+    takes the queue's member offsets beside them."""
+    n = width * T
+    nc = (width + width % 2) * T
     mw = -(-O // 32)
-    return (4 * (n6 * (n6 + 2) + SCHUR_WARPS * n6 + slots * SCHUR_GS
-                 + SCHUR_WARPS * SCHUR_UNIT * (2 + 2 * mw) + SCHUR_WARPS + 1)
+    compact = SCHUR_WARPS * SCHUR_UNIT + 1 if width == 9 else 0
+    return (4 * (n * (nc + 2) + SCHUR_WARPS * nc + slots * (4 * width + 1)
+                 + SCHUR_WARPS * SCHUR_UNIT * (2 + 2 * mw) + SCHUR_WARPS + 1 + compact)
             + 5 * slots)
 
 
-def schur_tile_max(slots=SCHUR_SLOTS, O=32):
-    """The largest tile whose block fits in SMEM_MAX_BYTES (0: none)."""
-    return max((T for T in range(1, 6 * SCHUR_WARPS + 1)
-                if schur_tile_bytes(T, slots, O) <= SMEM_MAX_BYTES), default=0)
+def schur_tile_max(slots=SCHUR_SLOTS, O=32, width=6):
+    """The largest tile whose block fits in SMEM_MAX_BYTES (0: none); P T at
+    most the block's threads."""
+    return max((T for T in range(1, SCHUR_WARPS * 32 // width + 1)
+                if schur_tile_bytes(T, slots, O, width) <= SMEM_MAX_BYTES), default=0)
 
 
-
-def schur_s_plan(K, L, O, n_sm, tile=None):
-    """Kernel C / K5's launch plan, from the shapes and the SM count alone.
+def schur_s_plan(K, L, O, n_sm, tile=None, width=6):
+    """Kernel C / K5's launch plan, from the shapes, the camera width P and
+    the SM count alone.
 
     - slots: staged observation slots a batch: SCHUR_SLOTS or one
       landmark's O if more, then as many more as fit beside the tile, up to
       64 landmarks' worth;
     - tile T: the cameras are cut into n_tiles = ceil(K / T_max) tiles of
-      T = ceil(K / n_tiles) (`tile` overrides T), so the 6T x 6T float tile
+      T = ceil(K / n_tiles) (`tile` overrides T), so the PT x PT float tile
       and the staged slots sit in a block's shared memory: one tile up to
-      K = schur_tile_max() (35 for O <= 32);
+      K = schur_tile_max() (35 for O <= 32 at P = 6; 20 tiles of 18 at
+      K = 356, O = 48 and P = 9);
     - pairs: the tile pairs (I, J), I <= J: the diagonal pairs first, then
       the others in row-major order;
     - chunks: the landmark chunks of every pair, one block each. One chunk
       once the pairs alone hold half the SMs; else two waves at most
       (2 n_sm // pairs), at most one chunk a unit of SCHUR_UNIT landmarks,
-      and at most what SCHUR_SCRATCH_CAP holds (at least 1); 0 when L = 0;
+      and at most what SCHUR_SCRATCH_CAP holds (at least 1); 0 when L = 0.
+      At width 9, whose pairs outnumber the SMs from a few hundred cameras
+      on (210 at K = 356), one block a pair leaves the last wave part
+      empty and each block a long scan, so every pair is cut into two
+      waves' worth of diagonal blocks (2 n_sm // n_tiles), at most
+      SCHUR_CHUNKS_9, one a unit and what SCHUR_SCRATCH_CAP_9 holds (on an
+      H100 at K = 356, O = 48: 12.3 ms at 8 chunks, 12.6 at 2 and 4, 16.1
+      at 1);
     - scratch_bytes: the chunk slabs of every pair and the rhs rows of every
       tile, at most max(SCHUR_SCRATCH_CAP, one chunk's slabs)."""
     slots = max(SCHUR_SLOTS, O)
-    t_max = schur_tile_max(slots, O)
+    t_max = schur_tile_max(slots, O, width)
     if t_max == 0:
         raise ValueError(f"O = {O}: a landmark's slots do not fit in shared memory")
     T = tile or max(1, -(-K // max(1, -(-K // t_max))))
     # then as many slots as fit beside the tile, up to 64 landmarks' worth
     while (slots + 32 <= max(SCHUR_SLOTS, 64 * O)
-           and schur_tile_bytes(T, slots + 32, O) <= SMEM_MAX_BYTES):
+           and schur_tile_bytes(T, slots + 32, O, width) <= SMEM_MAX_BYTES):
         slots += 32
     nt = max(1, -(-K // T))
     pairs = [(i, i) for i in range(nt)] + [(i, j) for i in range(nt)
                                            for j in range(i + 1, nt)]
-    per_chunk = 4 * (len(pairs) * 36 * T * T + nt * 6 * T)
+    per_chunk = 4 * (len(pairs) * width * width * T * T + nt * width * T)
     if L == 0:
         chunks = 0
+    elif width == 9:
+        chunks = min(SCHUR_CHUNKS_9, 2 * n_sm // nt, -(-L // SCHUR_UNIT))
+        chunks = max(1, min(chunks, SCHUR_SCRATCH_CAP_9 // per_chunk))
     else:
         chunks = max(1, 2 * n_sm // len(pairs)) if len(pairs) < n_sm // 2 else 1
         chunks = min(chunks, -(-L // SCHUR_UNIT))
         chunks = max(1, min(chunks, SCHUR_SCRATCH_CAP // per_chunk))
-    return SchurPlan(T, nt, pairs, chunks, slots, schur_tile_bytes(T, slots, O),
+    return SchurPlan(T, nt, pairs, chunks, slots, schur_tile_bytes(T, slots, O, width),
                      chunks * per_chunk)
 
 
 def _qqt_tiled(G, wz, cam_t, n_cams, plan):
-    """S_qqt [6K,6K] and red6 [6,K] summed in the kernel's blocking: for
+    """S_qqt [PK,PK] and red6 [P,K] summed in the kernel's blocking: for
     each tile pair, its chunks' partials in chunk order, mirrored into the
     lower pairs; red6 chunk by chunk."""
     K = n_cams
     L = cam_t.shape[1]
+    P = wz.shape[0]
     T, chunks = plan.tile, plan.chunks
-    S = torch.zeros((6 * K, 6 * K), dtype=G.dtype, device=G.device)
-    red6 = torch.zeros((6, K), dtype=G.dtype, device=G.device)
+    S = torch.zeros((P * K, P * K), dtype=G.dtype, device=G.device)
+    red6 = torch.zeros((P, K), dtype=G.dtype, device=G.device)
     chunk_of = (torch.arange(L, device=cam_t.device) // SCHUR_UNIT) % max(chunks, 1)
-    rows = [torch.tensor([i * K + k for i in range(6)
+    rows = [torch.tensor([i * K + k for i in range(P)
                           for k in range(I * T, min(K, (I + 1) * T))],
                          dtype=torch.long, device=G.device)
             for I in range(plan.n_tiles)]
@@ -577,8 +627,8 @@ def _qqt_tiled(G, wz, cam_t, n_cams, plan):
     for c in range(chunks):
         sel = torch.nonzero(chunk_of == c).flatten()
         Qs.append(qqt_factor(pf_index_add(G[:, :, sel], cam_t[:, sel], K), K))
-        reds.append(torch.zeros((K, 6), dtype=wz.dtype, device=wz.device).index_add_(
-            0, cam_t[:, sel].reshape(-1).long(), wz[:, :, sel].reshape(6, -1).T).T)
+        reds.append(torch.zeros((K, P), dtype=wz.dtype, device=wz.device).index_add_(
+            0, cam_t[:, sel].reshape(-1).long(), wz[:, :, sel].reshape(P, -1).T).T)
     for I, J in plan.pairs:
         rI, rJ = rows[I], rows[J]
         acc = torch.zeros((len(rI), len(rJ)), dtype=G.dtype, device=G.device)
@@ -593,11 +643,12 @@ def _qqt_tiled(G, wz, cam_t, n_cams, plan):
 
 
 def schur_qqt_partial_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams,
-                            plan=None):
-    """Plain version of K5. Returns (S_qqt [6K,6K] = +Q Q^T, zv [3,L],
-    vinv6 [6,L], red6 [6,K]), in (i, k) order. With a `plan`
+                            plan=None, valid_t=None):
+    """Plain version of K5. Returns (S_qqt [PK,PK] = +Q Q^T, zv [3,L],
+    vinv6 [6,L], red6 [P,K]), in (i, k) order, W18 being W [3P, O, L]. With a `plan`
     (schur_s_plan) the sums follow the kernel's blocking: tile pair by tile
-    pair and chunk by chunk."""
+    pair and chunk by chunk. `valid_t` (the kernel's hint of the slots that
+    hold an observation) changes no sum: a slot without one adds zeros."""
     G, zv, vinv6, red6 = schur_prepare_plain(lam, Vu, g_p, pt_valid, W18,
                                              cam_t, n_cams)
     if plan is not None:
@@ -607,64 +658,76 @@ def schur_qqt_partial_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams,
 
 
 def schur_prepare_s_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, red27,
-                          cam_fixed, plan=None):
-    """Plain version of kernel C. Returns (S [6K,6K], zv [3,L], vinv6 [6,L],
-    b [6K]), S = U_damped_embed + 1e-8 I - Q Q^T and b = -(g_c - sum W zv),
-    both in (i, k) order (row i*K + k); `plan` as schur_qqt_partial_plain."""
+                          cam_fixed, plan=None, valid_t=None):
+    """Plain version of kernel C. Returns (S [PK,PK], zv [3,L], vinv6 [6,L],
+    b [PK]), S = U_damped_embed + 1e-8 I - Q Q^T and b = -(g_c - sum W zv),
+    both in (i, k) order (row i*K + k), P the camera width (W18 [3P, O, L],
+    red27 [K, n_red(P)]); `plan` as schur_qqt_partial_plain."""
     S_qqt, zv, vinv6, red6 = schur_qqt_partial_plain(lam, Vu, g_p, pt_valid,
                                                      W18, cam_t, n_cams, plan)
     S, b = damped_system(lam, red27, cam_fixed, S_qqt, red6)
     return S, zv, vinv6, b
 
 
-def _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t):
+def _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t, widths=(6,)):
+    """Checks the arguments of C, K5 and D; returns (O, L, the camera width
+    P of W18 [3P, O, L], one of `widths`)."""
     O, L = cam_t.shape
     f32 = torch.float32
+    P = W18.shape[0] // 3 if W18.dim() == 3 else 0
+    kernels.require(P in widths and W18.shape[0] == 3 * P,
+                    f"W18: {3 * widths[0]} rows a slot (camera width in {widths}), "
+                    f"got shape {tuple(W18.shape)}")
     kernels.check_cuda("lam", lam, f32, ())
     kernels.check_cuda("Vu", Vu, f32, (6, L))
     kernels.check_cuda("g_p", g_p, f32, (3, L))
     kernels.check_cuda("pt_valid", pt_valid, torch.bool, (L,))
-    kernels.check_cuda("W18", W18, f32, (18, O, L))
+    kernels.check_cuda("W18", W18, f32, (3 * P, O, L))
     kernels.check_cuda("cam_t", cam_t, torch.int32, (O, L))
-    return O, L
+    return O, L, P
 
 
-def _schur_buffers(cam_t, K, L, O):
+def _schur_buffers(cam_t, K, L, O, P):
     """Kernel C / K5's plan for this card, its scratch slabs (Sp, Rp) and
-    outputs (S [6K,6K], rhs [6K], zv [3,L], vinv6 [6,L]), all torch.empty."""
+    outputs (S [PK,PK], rhs [PK], zv [3,L], vinv6 [6,L]), all torch.empty."""
     dev = cam_t.device
     plan = schur_s_plan(K, L, O, torch.cuda.get_device_properties(dev)
-                        .multi_processor_count)
+                        .multi_processor_count, width=P)
     f32 = torch.float32
-    n6 = 6 * plan.tile
+    n6 = P * plan.tile
     Sp = torch.empty((len(plan.pairs) * plan.chunks * n6 * n6,), dtype=f32, device=dev)
     Rp = torch.empty((plan.n_tiles * plan.chunks * n6,), dtype=f32, device=dev)
-    return (plan, Sp, Rp, torch.empty((6 * K, 6 * K), dtype=f32, device=dev),
-            torch.empty((6 * K,), dtype=f32, device=dev),
+    return (plan, Sp, Rp, torch.empty((P * K, P * K), dtype=f32, device=dev),
+            torch.empty((P * K,), dtype=f32, device=dev),
             torch.empty((3, L), dtype=f32, device=dev),
             torch.empty((6, L), dtype=f32, device=dev))
 
 
 def schur_prepare_s(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, red27,
-                    cam_fixed):
+                    cam_fixed, valid_t=None):
     """Kernel C: the damped Schur system of one LM iteration.
 
     lam: 0-d float32 tensor (stays on the device); Vu [6,L]; g_p [3,L];
-    pt_valid [L] bool; W18 [18,O,L]; cam_t [O,L] int32; red27 [K,27];
-    cam_fixed [K] bool. Returns (S, zv, vinv6, b) as the plain version.
+    pt_valid [L] bool; W18 [3P,O,L]; cam_t [O,L] int32; red27 [K, n_red(P)];
+    cam_fixed [K] bool; P = 6 or 9; valid_t [O,L] bool or None: the slots
+    that hold an observation, which the kernel then reads instead of testing
+    W of every slot at camera 0 (the padding's camera) for zeros. Returns
+    (S, zv, vinv6, b) as the plain version.
     """
     if not cam_t.is_cuda:
         return schur_prepare_s_plain(lam, Vu, g_p, pt_valid, W18, cam_t,
                                      n_cams, red27, cam_fixed)
-    O, L = _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t)
+    O, L, P = _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t, (6, 9))
     K = n_cams
-    kernels.check_cuda("red27", red27, torch.float32, (K, N_RED))
+    kernels.check_cuda("red27", red27, torch.float32, (K, n_red(P)))
     kernels.check_cuda("cam_fixed", cam_fixed, torch.bool, (K,))
-    plan, Sp, Rp, S, b, zv, vinv6 = _schur_buffers(cam_t, K, L, O)
+    if valid_t is not None:
+        kernels.check_cuda("valid_t", valid_t, torch.bool, (O, L))
+    plan, Sp, Rp, S, b, zv, vinv6 = _schur_buffers(cam_t, K, L, O, P)
     code = kernels.lib("schur_s").schur_prepare_s(
         lam.data_ptr(), red27.data_ptr(), cam_fixed.data_ptr(), Vu.data_ptr(),
         g_p.data_ptr(), pt_valid.data_ptr(), W18.data_ptr(), cam_t.data_ptr(),
-        O, L, K, plan.tile, plan.chunks, plan.slots, Sp.data_ptr(),
+        None if valid_t is None else valid_t.data_ptr(), O, L, K, P, plan.tile, plan.chunks, plan.slots, Sp.data_ptr(),
         Rp.data_ptr(), S.data_ptr(), b.data_ptr(), zv.data_ptr(),
         vinv6.data_ptr(), kernels.stream_of(cam_t))
     kernels.check(code, "schur_prepare_s")
@@ -672,28 +735,33 @@ def schur_prepare_s(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, red27,
     return S, zv, vinv6, b
 
 
-def schur_qqt_partial(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):
+def schur_qqt_partial(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams, valid_t=None):
     """K5: the per-shard Schur partial of the sharded engine.
 
-    Same inputs as kernel D. Returns (S_qqt [6K,6K] = +Q Q^T, zv [3,L],
-    vinv6 [6,L], red6 [6,K] = sum W zv), S_qqt and red6 in (i, k) order as
-    kernel C's: no U, no g_c, no jitter (the caller all-reduces them and
-    folds in the replicated damped U, `damped_system`)."""
+    Same inputs as kernel D, at camera width P = 6 or 9 (W18 [3P,O,L]);
+    `valid_t` as kernel C's.
+    Returns (S_qqt [PK,PK] = +Q Q^T, zv [3,L], vinv6 [6,L], red6 [P,K] =
+    sum W zv), S_qqt and red6 in (i, k) order as kernel C's: no U, no g_c,
+    no jitter (the caller all-reduces them and folds in the replicated
+    damped U, `damped_system`)."""
     if not cam_t.is_cuda:
         return schur_qqt_partial_plain(lam, Vu, g_p, pt_valid, W18, cam_t,
                                        n_cams)
-    O, L = _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t)
+    O, L, P = _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t, (6, 9))
     K = n_cams
-    plan, Sp, Rp, S, red6, zv, vinv6 = _schur_buffers(cam_t, K, L, O)
+    if valid_t is not None:
+        kernels.check_cuda("valid_t", valid_t, torch.bool, (O, L))
+    plan, Sp, Rp, S, red6, zv, vinv6 = _schur_buffers(cam_t, K, L, O, P)
     code = kernels.lib("schur_s").schur_qqt_partial(
         lam.data_ptr(), Vu.data_ptr(), g_p.data_ptr(), pt_valid.data_ptr(),
-        W18.data_ptr(), cam_t.data_ptr(), O, L, K, plan.tile, plan.chunks,
+        W18.data_ptr(), cam_t.data_ptr(), None if valid_t is None else valid_t.data_ptr(),
+        O, L, K, P, plan.tile, plan.chunks,
         plan.slots, Sp.data_ptr(), Rp.data_ptr(), S.data_ptr(),
         red6.data_ptr(), zv.data_ptr(), vinv6.data_ptr(),
         kernels.stream_of(cam_t))
     kernels.check(code, "schur_qqt_partial")
     kernels.LAUNCHES["schur_qqt_partial"] += 1
-    return S, zv, vinv6, red6.reshape(6, K)
+    return S, zv, vinv6, red6.reshape(P, K)
 
 
 def schur_prepare(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):
@@ -704,7 +772,7 @@ def schur_prepare(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams):
     vinv6 [6,L], red6 [6,K]) as the plain version."""
     if not cam_t.is_cuda:
         return schur_prepare_plain(lam, Vu, g_p, pt_valid, W18, cam_t, n_cams)
-    O, L = _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t)
+    O, L, _ = _check_prepare_args(lam, Vu, g_p, pt_valid, W18, cam_t)
     K = n_cams
     dev = cam_t.device
     f32 = torch.float32

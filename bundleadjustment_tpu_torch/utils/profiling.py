@@ -49,7 +49,8 @@ class PhaseTimer:
     "phases", per name of the spans inside it, {"self_ns": summed self time,
     "count": n}; and "spans", for a profiled root only (else None), every
     span of the root as (name, start_ns, end_ns, index of its parent in the
-    list or -1), the root first, to be laid beside the profiler's trace.
+    list or -1), the root first, to be laid beside the profiler's trace;
+    "counters", {name: value} set by `counter` while the root was open.
     The totals of `report()` take in a root's spans when the root closes.
     """
 
@@ -66,9 +67,21 @@ class PhaseTimer:
         """A context manager: the span `name`."""
         return _Span(self, name)
 
+    def counter(self, name, value):
+        """Sets the counter `name` of the open root span's record to `value`
+        (nothing where no span of this timer is open on this thread)."""
+        th = getattr(self._local, "th", None)
+        if th is not None and th.stack:
+            th.counters[name] = value
+
     def records(self):
         """The records of the last `KEEP` root spans, newest last."""
         return list(self._kept)
+
+    def clear_records(self):
+        """Forgets the kept records (where a measurement starts, so that its
+        records hold no earlier root span)."""
+        self._kept.clear()
 
     def report(self):
         """{phase: {"total_s", "count", "mean_ms"}} sorted by total."""
@@ -85,7 +98,7 @@ class _Thread:
     spans inside it (name -> [ns, self ns, count]) and, under a profiler,
     each span."""
 
-    __slots__ = ("stack", "phases", "spans")
+    __slots__ = ("stack", "phases", "spans", "counters")
 
     def __init__(self):
         self.stack = []
@@ -113,6 +126,7 @@ class _Span:
         else:
             self.parent = None
             th.phases = {}
+            th.counters = {}
             th.spans = [] if profiled else None
         spans = th.spans
         if spans is not None:
@@ -161,7 +175,7 @@ class _Span:
             "self_ns": dur - self.covered, "profiled": spans is not None,
             "phases": {n: {"self_ns": v[1], "count": v[2]}
                        for n, v in th.phases.items()},
-            "spans": spans})
+            "spans": spans, "counters": th.counters})
         return False
 
 

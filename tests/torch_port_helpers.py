@@ -5,6 +5,7 @@ worker collects the same tests.
 """
 
 import ast
+import importlib.util
 import os
 
 import numpy as np
@@ -28,6 +29,16 @@ def cuda_device():
     from bundleadjustment_tpu_torch.device import resolve_device
 
     return resolve_device("cuda")
+
+
+def bal_scene():
+    """The benchmark's BAL map generator (`benchmark/harness/bal_scene.py`),
+    which draws the tests' BAL problems too."""
+    path = os.path.join(REPO, "benchmark", "harness", "bal_scene.py")
+    spec = importlib.util.spec_from_file_location("bal_scene", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def as_tensor(a, device="cpu"):
